@@ -8,15 +8,27 @@ Phases, each printing its result and times on its own line:
      with edge values, the identity, P + P and P + (-P);
   3. a 2^20-point MSM with c = 17 (signed digits) checked by a trapdoor:
      points k_i*G with known k_i, expected (sum s_i k_i mod r)*G;
-  4. CPmmp at n = 4 on the card against the same run on the CPU,
-     element for element;
-  5. the CPmmp honest-verifier prover at n = 1024 (data, C = A*B, keygen,
-     commit A and B, prove), checked without a pairing by rebuilding
-     keygen's secrets, with the kernels' launch counts of this phase.
+  4. CPmmp at n = 4 on the card against the same run on the CPU, element
+     for element: the honest-verifier proof, the Fiat-Shamir in-clear
+     proof and the Fiat-Shamir committed proof (the transcript is
+     deterministic), each verified true on both devices;
+  5. the main path: CPmmp honest-verifier at n = 1024 (data, C = A*B,
+     keygen, commit A and B, prove, verify), checked without a pairing by
+     rebuilding keygen's secrets; four tampered proofs (a round commitment
+     swapped, a final changed, an opening witness changed, an entry of C
+     changed) verify false; the kernels' launch counts of the run, and the
+     launches and seconds of one more verify alone;
+  6. the probes P1a (SOS product), P1b (tensor-core reduction) and P2
+     (limb product, three variants) against their plain versions and K1
+     at 2^20, bit for bit, with their times beside K1's; the pairing on
+     the card: bilinearity e(aG1, bG2) = e(G1, G2)^(ab) at width 64 and
+     e(G1, G2) equal to the CPU's;
+  7. the Fiat-Shamir path at n = 1024 with phase 5's key and data: prove
+     and verify true, a tampered proof false, with its launch counts.
 Then a `kernels` JSON line, the `nvidia-smi` name and power limit line,
 and as the last line {"ok": true, "device": {...}}.
 
-Usage: python3 chip_smoke.py [--phases 1,2,3,4,5]
+Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7]   (phase 7 needs 5)
 Needs one CUDA card; exits non-zero without one, or when any check fails.
 """
 from __future__ import annotations
@@ -38,6 +50,16 @@ INT32_MUL_PER_S = 64 * 132 * 1.98e9
 #: for a*b and 64 for m*p, each needing its low and high word, and 8 for
 #: m = t[0] * pinv, which needs only the low word
 IMUL_PER_MONT = 2 * (64 + 64) + 8
+#: the SOS product (P1a): a*b and m*p as in CIOS, and m = t_lo * ninv mod R
+#: over the whole 256-bit ninv, 36 word products of which 28 need their
+#: high word
+IMUL_PER_SOS = 2 * (64 + 64) + 36 + 28
+#: P1b on the CUDA cores: t = a*b only
+IMUL_PER_TC = 2 * 64
+#: P1b on the tensor cores: 6 mma.sync m16n8k32 tiles per 8 elements, 2
+#: operations per multiply-add, at the data sheet's dense int8 rate
+TC_OPS_PER_ELEM = 6 * 16 * 8 * 32 * 2 // 8
+INT8_TC_OPS_PER_S = 1979e12
 LIMB_BYTES = 32
 
 
@@ -91,41 +113,17 @@ def aff_neg(p):
 
 
 # ---------------------------------------------------------------------------
-# timing
+# bounds
 # ---------------------------------------------------------------------------
 
 
-def timed_ms(torch, fn, dev, reps: int = 10) -> float:
-    """Mean ms of fn() on `dev` after one warm-up: CUDA events on the card."""
-    fn()
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound(nbytes: float, imuls: float):
-    """(least ms, 'bytes' | 'operations') for the given work."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, imuls / INT32_MUL_PER_S * 1e3
+def bound(nbytes: float, imuls: float, tc_ops: float = 0.0):
+    """(least ms, 'bytes' | 'operations') for the given work: the larger of
+    the bytes over the HBM rate and each kind of operation over its peak
+    (32-bit multiplies on the CUDA cores, u8 tensor-core operations)."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(imuls / INT32_MUL_PER_S, tc_ops / INT8_TC_OPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def word_err(torch, a, b) -> int:
-    """Largest |difference| between two int32 limb tensors as uint32 words
-    (0 means bit-identical)."""
-    da = a.to(torch.int64) & 0xFFFFFFFF
-    db = b.to(torch.int64) & 0xFFFFFFFF
-    return int((da - db).abs().max().item()) if da.numel() else 0
 
 
 # ---------------------------------------------------------------------------
@@ -153,18 +151,14 @@ def phase_startup(torch, kernels) -> dict:
     return {"smi": smi, "build_s": build_s}
 
 
-def _rand_below(np, rng, n, bound_int):
-    """n ints uniform-ish in [0, bound_int) from 320 random bits each."""
-    raw = rng.integers(0, 1 << 63, size=(n, 5), dtype=np.int64)
-    return [int.from_bytes(r.tobytes(), "little") % bound_int for r in raw]
-
-
 def phase_kernels(torch, np, dev, n: int) -> dict:
     from legosnark_tpu_torch.curve import bn254, cuda_group, msm
     from legosnark_tpu_torch.curve.group import (G1, Point, g1_generator,
                                                  g1_to_ints)
     from legosnark_tpu_torch.fields import cuda_limb
     from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.utils.bench import (edge_ints, rand_below,
+                                                 timed_ms, word_err)
 
     rng = np.random.default_rng(2024)
     stats = {}
@@ -172,14 +166,14 @@ def phase_kernels(torch, np, dev, n: int) -> dict:
     errs, ms, plain_ms = [], None, None
     for spec in (bn254.FR, bn254.FQ):
         p = spec.p
-        edge = [0, 1, p - 1, p, 2 * p - 1, (1 << 224) - 1, (1 << 192) - 1]
-        xs = edge + _rand_below(np, rng, n - len(edge), 2 * p)
-        ys = edge[::-1] + _rand_below(np, rng, n - len(edge), 2 * p)
+        edge = edge_ints(p)
+        xs = edge + rand_below(rng, n - len(edge), 2 * p)
+        ys = edge[::-1] + rand_below(rng, n - len(edge), 2 * p)
         a = fl.tensor(fl.ints_to_limbs(xs), dev)
         b = fl.tensor(fl.ints_to_limbs(ys), dev)
         got = cuda_limb.mont_mul(spec, a, b)
         want = cuda_limb.mont_mul_plain(spec, a, b)
-        errs.append(word_err(torch, got, want))
+        errs.append(word_err(got, want))
         # spot check against Python ints
         gi = fl.limbs_to_ints(got[:, :64].cpu())
         for i in range(64):
@@ -187,11 +181,9 @@ def phase_kernels(torch, np, dev, n: int) -> dict:
                   f"K1 {spec.name} value {i}")
             check(gi[i] < 2 * p, f"K1 {spec.name} output < 2p")
         if spec is bn254.FR:
-            ms = timed_ms(torch, lambda: cuda_limb.mont_mul(spec, a, b), dev,
-                          reps=20)
-            plain_ms = timed_ms(torch,
-                                lambda: cuda_limb.mont_mul_plain(spec, a, b),
-                                dev, reps=2)
+            ms = timed_ms(lambda: cuda_limb.mont_mul(spec, a, b), dev, 20)
+            plain_ms = timed_ms(lambda: cuda_limb.mont_mul_plain(spec, a, b),
+                                dev, 2)
     tb, by = bound(3 * LIMB_BYTES * n, IMUL_PER_MONT * n)
     stats["mont_mul"] = {"max_abs_err": max(errs), "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": tb, "bound_by": by}
@@ -199,7 +191,7 @@ def phase_kernels(torch, np, dev, n: int) -> dict:
         f"{ms:.4f} ms plain {plain_ms:.2f} ms bound {tb:.4f} ms ({by})")
 
     # K2/K3: points k_i*G; second operand mixes Q = P, -P, identity, other
-    ks = fl.tensor(fl.ints_to_limbs(_rand_below(np, rng, n, R)), dev)
+    ks = fl.tensor(fl.ints_to_limbs(rand_below(rng, n, R)), dev)
     table = msm.fixed_base_table(G1, g1_generator((), dev), c=8)
     P = msm.batch_scalar_mul(G1, table, ks, c=8)
     Qp = Point(*(t.roll(1, -1) for t in P))
@@ -213,10 +205,10 @@ def phase_kernels(torch, np, dev, n: int) -> dict:
 
     got = cuda_group.add_points(Pc, Qc)
     want = cuda_group.add_points_plain(Pc, Qc)
-    err_add = max(word_err(torch, g, w) for g, w in zip(got, want))
+    err_add = max(word_err(g, w) for g, w in zip(got, want))
     gotd = cuda_group.double_point(Pc)
     wantd = cuda_group.double_point_plain(Pc)
-    err_dbl = max(word_err(torch, g, w) for g, w in zip(gotd, wantd))
+    err_dbl = max(word_err(g, w) for g, w in zip(gotd, wantd))
     # group-law spot check against the affine reference
     m = 16
     pa = g1_to_ints(Point(*(t[:, :m] for t in Pc)))
@@ -233,8 +225,8 @@ def phase_kernels(torch, np, dev, n: int) -> dict:
              lambda: cuda_group.add_points_plain(Pc, Qc), err_add, 6, 14),
             ("g1_double", lambda: cuda_group.double_point(Pc),
              lambda: cuda_group.double_point_plain(Pc), err_dbl, 3, 9)):
-        ms = timed_ms(torch, fn, dev, reps=20)
-        plain_ms = timed_ms(torch, pfn, dev, reps=1)
+        ms = timed_ms(fn, dev, 20)
+        plain_ms = timed_ms(pfn, dev, 1)
         tb, by = bound((nin + 3) * LIMB_BYTES * n, nmul * IMUL_PER_MONT * n)
         stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": tb, "bound_by": by}
@@ -276,22 +268,23 @@ def _sync(torch, dev):
         torch.cuda.synchronize(dev)
 
 
-def _proof_ints(res) -> dict:
-    """Every element of a CPmmp run as canonical ints / affine points."""
+def _proof_ints(pf) -> dict:
+    """Every element of a CPmmp proof as canonical ints / affine points."""
     from legosnark_tpu_torch.convert import to_ints
     from legosnark_tpu_torch.curve.group import Point
 
-    pf, sc = res["proof"], res["proof"].sc_proof
-    out = {"a_comm": to_ints(res["a_comm"].c) + to_ints(res["a_comm"].ca),
-           "b_comm": to_ints(res["b_comm"].c) + to_ints(res["b_comm"].ca),
-           "t_comm": to_ints(pf.t_comm),
+    sc = pf.sc_proof
+    out = {"r": list(to_ints(pf.r)), "s": list(to_ints(pf.s)),
+           "t_comm": to_ints(pf.t_comm), "c_ans_comm": to_ints(pf.c_ans_comm),
            "h_comms": to_ints(Point(*(t.movedim(0, -2).reshape(8, -1)
                                      for t in sc.h_comms))),
+           "sc_r": list(to_ints(sc.r)),
            "eq_a": to_ints(sc.eq_proofs.a),
            "eq_z": list(to_ints(sc.eq_proofs.z)),
            "ans_comms": to_ints(sc.ans_comms),
            "finals": list(to_ints(sc.finals))}
-    for i, ppf in enumerate(sc.poly_pfs):
+    pfs = list(sc.poly_pfs) + ([pf.c_poly_pf] if pf.c_poly_pf else [])
+    for i, ppf in enumerate(pfs):
         out[f"poly{i}"] = to_ints(ppf.witness) + to_ints(ppf.witnessa)
     for f in sc.prd_proof._fields:
         v = getattr(sc.prd_proof, f)
@@ -300,18 +293,41 @@ def _proof_ints(res) -> dict:
     return out
 
 
-def phase_parity(torch, dev) -> None:
+def _n4_runs(dev) -> dict:
+    """The n = 4 honest-verifier, Fiat-Shamir in-clear and Fiat-Shamir
+    committed proofs on `dev` (one key and one set of commitments), with
+    their verdicts."""
     from legosnark_tpu_torch.examples import matrixsc
+    from legosnark_tpu_torch.gadgets import matrix as cpmat
 
+    hv = matrixsc.run(2, device=dev, fs=False)
+    key, A, B, C = hv["key"], hv["A"], hv["B"], hv["C"]
+    a_cm, b_cm, nonces = hv["a_comm"], hv["b_comm"], hv["nonces"]
+    fpf = cpmat.prove_output_in_clear_fs(key, A, B, C, a_cm, b_cm, nonces)
+    f_ok = bool(cpmat.verify_output_in_clear_fs(key, a_cm, b_cm, C, fpf))
+    c_cm = cpmat.commit_matrix(key, C)
+    cpf = cpmat.prove_fs(key, A, B, C, a_cm, b_cm, c_cm, nonces)
+    c_ok = bool(cpmat.verify_fs(key, a_cm, b_cm, c_cm, cpf))
+    return {"hv": (_proof_ints(hv["proof"]), hv["ok"]),
+            "fs": (_proof_ints(fpf), f_ok),
+            "fs_committed": (_proof_ints(cpf), c_ok)}
+
+
+def phase_parity(torch, dev) -> None:
     t0 = time.perf_counter()
-    on_card = _proof_ints(matrixsc.run(2, device=dev))
+    on_card = _n4_runs(dev)
     t1 = time.perf_counter()
-    on_cpu = _proof_ints(matrixsc.run(2, device="cpu"))
+    on_cpu = _n4_runs("cpu")
     t2 = time.perf_counter()
-    for k in on_cpu:
-        check(on_card[k] == on_cpu[k], f"n=4 proof element {k}: card == CPU")
-    log(f"# phase 4 ok: CPmmp n=4 card == CPU on {len(on_cpu)} proof fields "
-        f"(card {t1 - t0:.1f}s, cpu {t2 - t1:.1f}s)")
+    for mode, (want, ok_cpu) in on_cpu.items():
+        got, ok_card = on_card[mode]
+        check(ok_cpu and ok_card, f"n=4 {mode}: verify true on card and CPU")
+        for k in want:
+            check(got[k] == want[k], f"n=4 {mode} proof element {k}: "
+                  f"card == CPU")
+    log(f"# phase 4 ok: CPmmp n=4 honest-verifier, Fiat-Shamir in-clear and "
+        f"Fiat-Shamir committed proofs card == CPU on every field, verify "
+        f"true on both (card {t1 - t0:.1f}s, cpu {t2 - t1:.1f}s)")
 
 
 def mle_fold(vals, pt):
@@ -333,10 +349,11 @@ def phase_cpmmp(torch, np, dev, d: int, kernels) -> dict:
     check(1 << d >= matrixsc._DEVICE_DATA_MIN_N, "n samples A, B by limbs")
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = matrixsc.run(d, device=dev)
+    res = matrixsc.run(d, device=dev, fs=False)
     _sync(torch, dev)
     total_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
+    check(res["ok"], "CPmmp n=1024 honest-verifier proof verifies")
     log(f"# phase 5 CPmmp n={res['n']}: launches {json.dumps(launches)} "
         f"times {json.dumps({k: round(v, 3) for k, v in res['times'].items()})} "
         f"total {total_s:.1f}s")
@@ -412,26 +429,229 @@ def phase_cpmmp(torch, np, dev, d: int, kernels) -> dict:
             check(wa[j] == aff_mul(w[j], alpha), f"Wa_{j} = alpha W_{j}")
         lhs = aff_add(pts(cm.c)[0], aff_neg(aff_mul(G, ans)))
         check(lhs == rhs, f"opening {i}: C - ans G = sum (s_j - pt_j) W_j")
-    log(f"# phase 5 ok: commitments, t_comm, the sumcheck chain, finals and "
+    log(f"# phase 5: commitments, t_comm, the sumcheck chain, finals and "
         f"openings checked against host-int MLEs and keygen's rebuilt "
         f"secrets (reference {ref_s:.1f}s)")
-    return {"launches": launches, "times": res["times"], "total_s": total_s}
+
+    verify_s, verify_launches = _verify_alone(torch, dev, kernels, res)
+    log(f"# phase 5 verify alone: {verify_s:.3f}s, launches "
+        f"{json.dumps(verify_launches)}")
+    _tampers(torch, dev, res)
+    log(f"# phase 5 ok: CPmmp n={n} honest-verifier verify true, four "
+        f"tampered proofs false")
+    return {"launches": launches, "times": res["times"], "total_s": total_s,
+            "verify_s": verify_s, "verify_launches": verify_launches,
+            "res": res}
 
 
+def _verify_hv(res, proof=None, C=None):
+    from legosnark_tpu_torch.gadgets import matrix as cpmat
+    return bool(cpmat.verify_output_in_clear(
+        res["key"], res["a_comm"], res["b_comm"],
+        res["C"] if C is None else C, res["proof"] if proof is None else proof,
+        hv_rand=res["hv"]))
+
+
+def _verify_alone(torch, dev, kernels, res):
+    """Seconds and kernel launches of one honest-verifier verify."""
+    _sync(torch, dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ok = _verify_hv(res)
+    verify_s = time.perf_counter() - t0
+    check(ok, "verify alone is true")
+    return verify_s, dict(kernels.launches)
+
+
+def _tampers(torch, dev, res) -> None:
+    """Four tampered copies of the n = 1024 proof, each verified false."""
+    from legosnark_tpu_torch.curve import bn254
+    from legosnark_tpu_torch.curve.group import Point
+    from legosnark_tpu_torch.fields import limb as fl
+
+    pf = res["proof"]
+    sc = pf.sc_proof
+
+    def swap01(x):
+        y = x.clone()
+        y[0, ..., 0], y[0, ..., 1] = x[0, ..., 1], x[0, ..., 0]
+        return y
+
+    one = fl.one(bn254.FR, (), dev)
+    finals = sc.finals.clone()
+    finals[..., :1] = fl.add(bn254.FR, finals[..., :1], one)
+    w = sc.poly_pfs[0]
+    w_bad = w._replace(witness=Point(*(t.roll(1, -1) for t in w.witness)))
+    C = res["C"].clone()
+    C[0, :, :1] = fl.add(bn254.FR, C[0, :, :1], one)
+    cases = {
+        "round commitment swapped":
+            (pf._replace(sc_proof=sc._replace(
+                h_comms=Point(*(swap01(t) for t in sc.h_comms)))), None),
+        "final changed":
+            (pf._replace(sc_proof=sc._replace(finals=finals)), None),
+        "opening witness changed":
+            (pf._replace(sc_proof=sc._replace(
+                poly_pfs=(w_bad,) + tuple(sc.poly_pfs[1:]))), None),
+        "entry of C changed": (pf, C),
+    }
+    for what, (proof, Cm) in cases.items():
+        t0 = time.perf_counter()
+        ok = _verify_hv(res, proof, Cm)
+        log(f"# phase 5 tamper '{what}': verify {ok} "
+            f"({time.perf_counter() - t0:.2f}s)")
+        check(not ok, f"tampered proof ({what}) verifies false")
+
+
+def phase_probes(torch, np, dev) -> dict:
+    """P1a, P1b and P2 at 2^20 against their plain versions and K1."""
+    from legosnark_tpu_torch.probes import mont_variants
+
+    n = 1 << 20
+    t0 = time.perf_counter()
+    res = mont_variants.measure(20, dev)
+    k1_ms = res.pop("k1")["ms"]
+    work = {   # bytes, 32-bit multiplies, tensor-core operations per element
+        "mont_mul_sos": (3 * LIMB_BYTES, IMUL_PER_SOS, 0),
+        "mont_mul_tc": (3 * LIMB_BYTES, IMUL_PER_TC, TC_OPS_PER_ELEM),
+        "limb_product_floor": (4 * LIMB_BYTES, 16, 0),
+        "limb_product_operand": (4 * LIMB_BYTES, 128, 0),
+        "limb_product_product": (4 * LIMB_BYTES, 128, 0),
+    }
+    stats = {}
+    for name, (nb, imul, tc) in work.items():
+        st = res[name]
+        tb, by = bound(nb * n, imul * n, tc * n)
+        stats[name] = {"max_abs_err": st["max_abs_err"], "ms": st["ms"],
+                       "plain_ms": st["plain_ms"], "bound_ms": tb,
+                       "bound_by": by}
+        k1 = f" k1_err {st['k1_err']}" if "k1_err" in st else ""
+        log(f"# phase 6 {name} n={n}: max_abs_err {st['max_abs_err']}{k1} "
+            f"kernel {st['ms']:.4f} ms plain {st['plain_ms']:.2f} ms bound "
+            f"{tb:.4f} ms ({by}); K1 {k1_ms:.4f} ms")
+        check(st["max_abs_err"] == 0, f"{name} equals its plain version")
+        check(st.get("k1_err", 0) == 0, f"{name} equals K1")
+    log(f"# phase 6 probes: P1b/K1 time ratio {res['mont_mul_tc']['ms'] / k1_ms:.3f}, "
+        f"P1a/K1 {res['mont_mul_sos']['ms'] / k1_ms:.3f} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    phase_pairing(torch, np, dev)
+    log("# phase 6 ok: P1a, P1b and P2 bit-identical to their plain "
+        "versions (P1a, P1b to K1); pairing bilinear and card == CPU")
+    return stats
+
+
+def phase_pairing(torch, np, dev) -> None:
+    """Bilinearity e(aG1, bG2) = e(G1, G2)^(ab) at width 64 on the card,
+    and e(G1, G2) on the card equal to the CPU's."""
+    from legosnark_tpu_torch.convert import to_ints
+    from legosnark_tpu_torch.curve import bn254, pairing as pr
+    from legosnark_tpu_torch.curve.group import (G1, G2, g1_generator,
+                                                 g2_generator)
+    from legosnark_tpu_torch.fields import limb as fl
+
+    m = 64
+    rng = np.random.default_rng(64)
+    a = [int(x) for x in rng.integers(1, 1 << 16, size=m)]
+    b = [int(x) for x in rng.integers(1, 1 << 16, size=m)]
+    t0 = time.perf_counter()
+    P = G1.scalar_mul(g1_generator((), dev), fl.tensor(fl.ints_to_limbs(a), dev))
+    Q = G2.scalar_mul(g2_generator((), dev), fl.tensor(fl.ints_to_limbs(b), dev))
+    px, py, _ = pr.g1_affine(P)
+    qx, qy, _ = pr.g2_affine(Q)
+    e_ab = pr.pairing(px, py, qx, qy)                       # [.., 64]
+
+    def base(device):
+        gx, gy, _ = pr.g1_affine(g1_generator((), device))
+        hx, hy, _ = pr.g2_affine(g2_generator((), device))
+        return pr.pairing(gx, gy, hx, hy)                   # [.., 1]
+
+    e1 = base(dev)
+    # e(G1, G2)^(a_i b_i), square-and-multiply with per-lane exponent bits
+    ab = [x * y for x, y in zip(a, b)]
+    acc = pr.F12.one((m,), dev)
+    for bit in range(max(ab).bit_length() - 1, -1, -1):
+        acc = pr.F12.sqr(acc)
+        take = torch.tensor([(v >> bit) & 1 for v in ab], dtype=torch.bool,
+                            device=dev)
+        acc = pr.F12.select(take, pr.F12.mul(acc, e1), acc)
+    bil = bool(pr.F12.eq(e_ab, acc).all())
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e1_cpu = base("cpu")
+    cpu_s = time.perf_counter() - t0
+    same = (list(to_ints(e1.reshape(12, 8, 1), bn254.FQ).reshape(-1))
+            == list(to_ints(e1_cpu.reshape(12, 8, 1), bn254.FQ).reshape(-1)))
+    log(f"# phase 6 pairing: bilinear at width {m} {bil}, e(G1, G2) card == "
+        f"CPU {same} (card {card_s:.1f}s, cpu {cpu_s:.1f}s)")
+    check(bil, "e(aG1, bG2) = e(G1, G2)^(ab) on the card")
+    check(same, "e(G1, G2) on the card equals the CPU's")
+    check(not bool(pr.F12.is_one(e1).all()), "e(G1, G2) != 1")
+
+
+def phase_fs(torch, dev, kernels, res) -> dict:
+    """The Fiat-Shamir path at n = 1024 with phase 5's key and data."""
+    from legosnark_tpu_torch.curve.group import Point
+    from legosnark_tpu_torch.gadgets import matrix as cpmat
+
+    key, A, B, C = res["key"], res["A"], res["B"], res["C"]
+    a_cm, b_cm = res["a_comm"], res["b_comm"]
+    _sync(torch, dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pf = cpmat.prove_output_in_clear_fs(key, A, B, C, a_cm, b_cm,
+                                        res["nonces"])
+    _sync(torch, dev)
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = bool(cpmat.verify_output_in_clear_fs(key, a_cm, b_cm, C, pf))
+    verify_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    log(f"# phase 7 FS CPmmp n={key.n}: prove {prove_s:.3f}s verify "
+        f"{verify_s:.3f}s verdict {ok}; launches {json.dumps(launches)}")
+    check(ok, "Fiat-Shamir proof at n=1024 verifies")
+    for name in ("mont_mul", "g1_add", "g1_double"):
+        check(launches.get(name, 0) > 0, f"{name} launched on the FS path")
+    sc = pf.sc_proof
+    bad = pf._replace(sc_proof=sc._replace(h_comms=Point(
+        *(t.roll(1, 0) for t in sc.h_comms))))
+    t0 = time.perf_counter()
+    ok_bad = bool(cpmat.verify_output_in_clear_fs(key, a_cm, b_cm, C, bad))
+    log(f"# phase 7 tamper 'round commitments rotated': verify {ok_bad} "
+        f"({time.perf_counter() - t0:.2f}s)")
+    check(not ok_bad, "tampered Fiat-Shamir proof verifies false")
+    log("# phase 7 ok: Fiat-Shamir prove + verify at n=1024 true, tamper "
+        "false")
+    return {"launches": launches, "prove_s": prove_s, "verify_s": verify_s}
+
+
+#: name -> (source, the TPU kernel it replaces, on the main path?)
 KERNELS = {
     "mont_mul": ("legosnark_tpu_torch/csrc/mont_mul.cu",
-                 "legosnark_tpu/fields/pallas_limb.py:156"),
+                 "legosnark_tpu/fields/pallas_limb.py:156", True),
     "g1_add": ("legosnark_tpu_torch/csrc/g1.cu",
-               "legosnark_tpu/curve/pallas_group.py:366"),
+               "legosnark_tpu/curve/pallas_group.py:366", True),
     "g1_double": ("legosnark_tpu_torch/csrc/g1.cu",
-                  "legosnark_tpu/curve/pallas_group.py:366"),
+                  "legosnark_tpu/curve/pallas_group.py:366", True),
+    "mont_mul_sos": ("legosnark_tpu_torch/csrc/mont_sos.cu",
+                     "scripts/probe_mxu.py:136", False),
+    "mont_mul_tc": ("legosnark_tpu_torch/csrc/mont_tc.cu",
+                    "scripts/probe_mxu.py:143", False),
+    "limb_product_floor": ("legosnark_tpu_torch/csrc/limb_product.cu",
+                           "scripts/probe_conv.py:33", False),
+    "limb_product_operand": ("legosnark_tpu_torch/csrc/limb_product.cu",
+                             "scripts/probe_conv.py:33", False),
+    "limb_product_product": ("legosnark_tpu_torch/csrc/limb_product.cu",
+                             "scripts/probe_conv.py:33", False),
 }
 
 
 def main(argv) -> int:
-    phases = {1, 2, 3, 4, 5}
+    phases = {1, 2, 3, 4, 5, 6, 7}
     if "--phases" in argv:
         phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
+    if 7 in phases and 5 not in phases:
+        print("chip_smoke: phase 7 reuses phase 5's key", file=sys.stderr)
+        return 2
     try:
         import numpy as np
         import torch
@@ -456,21 +676,33 @@ def main(argv) -> int:
         phase_msm(torch, np, dev, 1 << 20, 17)
     if 4 in phases:
         phase_parity(torch, dev)
-    main_path = (phase_cpmmp(torch, np, dev, 10, kernels) if 5 in phases
-                 else {"launches": {}})
+    hv = phase_cpmmp(torch, np, dev, 10, kernels) if 5 in phases else None
+    if 6 in phases:
+        stats.update(phase_probes(torch, np, dev))
+    fs = phase_fs(torch, dev, kernels, hv["res"]) if 7 in phases else None
+    paths = {"cpmmp_hv_1024": hv["launches"] if hv else {},
+             "cpmmp_fs_1024": fs["launches"] if fs else {}}
     rows = []
-    for name, (src, tpu) in KERNELS.items():
+    for name, (src, tpu, on_path) in KERNELS.items():
         st = stats.get(name, {})
+        by_path = {p: c.get(name, 0) for p, c in paths.items()}
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu,
-                     "launches": main_path["launches"].get(name, 0),
+                     "replaces": tpu, "on_main_path": on_path,
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
                      "max_abs_err": st.get("max_abs_err"),
                      "ms": st.get("ms"), "plain_ms": st.get("plain_ms"),
                      "bound_ms": st.get("bound_ms"),
-                     "bound_by": st.get("bound_by"), "library_ms": None,
-                     "build": "ok"})
-    log(f"# all phases {sorted(phases)} passed in "
-        f"{time.perf_counter() - t_all:.1f}s")
+                     "bound_by": st.get("bound_by"), "library_ms": None})
+    summary = {"phase_s": round(time.perf_counter() - t_all, 1)}
+    if hv:
+        summary.update({"hv_1024": {k: round(v, 3)
+                                    for k, v in hv["times"].items()},
+                        "hv_verify_alone_s": round(hv["verify_s"], 3)})
+    if fs:
+        summary.update({"fs_prove_s": round(fs["prove_s"], 3),
+                        "fs_verify_s": round(fs["verify_s"], 3)})
+    log(f"# all phases {sorted(phases)} passed: {json.dumps(summary)}")
     print(json.dumps({"kernels": rows}))
     print(start["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -71,6 +71,44 @@ def matkey_from_jax(key, device):
     return MatKey(key.n, key.d, polykey_from_jax(key.poly_key, device))
 
 
+def polycomm_from_jax(cm, device):
+    """A JAX `PolyComm` -> the port's."""
+    from .gadgets.poly import PolyComm
+    return PolyComm(point_from_jax(cm.c, device), point_from_jax(cm.ca, device))
+
+
+def matproof_from_jax(pf, device):
+    """A JAX `MatProof` (with its `SumcheckProof`, CPpoly and sigma
+    proofs) -> the port's. Field values become port Montgomery limbs of
+    the same elements, points port points of the same group elements."""
+    from .gadgets import matrix, poly, sigma, sumcheck
+
+    def fr(x):
+        return fl.tensor(field_from_jax(x, bn254.FR), device)
+
+    def ppf(p):
+        return poly.PolyPf(point_from_jax(p.witness, device),
+                           point_from_jax(p.witnessa, device))
+
+    sc = pf.sc_proof
+    prd = sc.prd_proof
+    sc_t = sumcheck.SumcheckProof(
+        r=fr(sc.r), h_comms=point_from_jax(sc.h_comms, device),
+        eq_proofs=sigma.ZKEqProof(point_from_jax(sc.eq_proofs.a, device),
+                                  fr(sc.eq_proofs.z)),
+        ans_comms=point_from_jax(sc.ans_comms, device),
+        poly_pfs=tuple(ppf(p) for p in sc.poly_pfs),
+        prd_proof=sigma.ZKPrdProof(
+            *(point_from_jax(getattr(prd, f), device)
+              for f in ("alpha", "beta", "delta")),
+            *(fr(getattr(prd, f)) for f in ("z1", "z2", "z3", "z4", "z5"))),
+        finals=fr(sc.finals))
+    return matrix.MatProof(
+        r=fr(pf.r), s=fr(pf.s), t_comm=point_from_jax(pf.t_comm, device),
+        sc_proof=sc_t, c_ans_comm=point_from_jax(pf.c_ans_comm, device),
+        c_poly_pf=None if pf.c_poly_pf is None else ppf(pf.c_poly_pf))
+
+
 def to_ints(x, spec: FieldSpec = bn254.FR, g2: bool = False):
     """Canonical integers of port values: Montgomery limbs [..., 8, n] ->
     object array [..., n]; a `Point` -> flat list of affine (x, y), or

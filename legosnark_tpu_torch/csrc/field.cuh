@@ -78,6 +78,30 @@ __device__ __forceinline__ void fmul(uint32_t r[8], const uint32_t a[8], const u
   for (int j = 0; j < 8; ++j) r[j] = t[j];
 }
 
+// t = a*b, the full 512-bit product in 16 words (operand scanning with
+// 64-bit accumulators): 64 word products, each needing its low and high word.
+__device__ __forceinline__ void mul_wide(uint32_t t[16], const uint32_t a[8],
+                                        const uint32_t b[8]) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint64_t s = (uint64_t)a[j] * b[i] + t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    t[i + 8] = (uint32_t)c;
+  }
+}
+
+// Element e of a batch [B, 16, n] (a 512-bit value per element).
+__device__ __forceinline__ int64_t elem_base16(int64_t e, int64_t n) {
+  return (e / n) * 16 * n + (e % n);
+}
+
 // r = a + b mod 2p. r may alias a or b.
 __device__ __forceinline__ void fadd(uint32_t r[8], const uint32_t a[8], const uint32_t b[8],
                                      const Field& F) {

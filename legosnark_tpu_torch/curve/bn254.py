@@ -44,6 +44,24 @@ def _fq2_inv(a):
     return ((a[0] * d) % Q, (-a[1] * d) % Q)
 
 
+def _fq2_pow(a, e):
+    acc, base = (1, 0), a
+    while e:
+        if e & 1:
+            acc = _fq2_mul(acc, base)
+        base = _fq2_mul(base, base)
+        e >>= 1
+    return acc
+
+
+def frob_coeffs() -> dict:
+    """Frobenius coefficients of the tower (`legosnark_tpu/curve/
+    bn254.py:frob_coeffs`): for power n in (1, 2, 3), gamma_n[k] =
+    xi^(k (q^n - 1) / 6), k = 0..5, the factor of the w^k coefficient."""
+    return {n: [_fq2_pow(XI, k * (Q**n - 1) // 6) for k in range(6)]
+            for n in (1, 2, 3)}
+
+
 # Twist curve coefficient b2 = 3 / xi  (alt_bn128 is a D-type twist)
 B_G2 = _fq2_mul((B_G1, 0), _fq2_inv(XI))
 

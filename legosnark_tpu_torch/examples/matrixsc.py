@@ -1,15 +1,17 @@
-"""CPmmp example, honest-verifier mode: data, keygen, commit, prove.
+"""CPmmp example: data, keygen, commit, prove, verify.
 
-Counterpart of the `fs=False` branch of `legosnark_tpu/examples/
-matrixsc.py:77-174`. Builds random n x n A, B with C = A*B from the same
-seed and in the same draw order as the JAX example (at n >= 16 through
-`rand_fr_limbs_fast` and `mle.matmul_mont` on the device, below through
-host ints), then runs keygen (seed 1), commits A and B and proves, and
-prints `##` timings. Verification needs the pairing, which this package
-does not have yet.
+Counterpart of `legosnark_tpu/examples/matrixsc.py:77-208`. Builds random
+n x n A, B with C = A*B from the same seed and in the same draw order as
+the JAX example (at n >= 16 through `rand_fr_limbs_fast` and
+`mle.matmul_mont` on the device, below through host ints), then runs
+keygen (seed 1), commits A and B, proves that C = A*B with C public, and
+verifies. Fiat-Shamir is the default: r, s and every sumcheck challenge
+come from the transcript. `--hv` selects the honest-verifier mode, whose
+challenges are drawn from the seed after keygen, as in the JAX example.
+Prints `##` timings and VERIFY OK or VERIFY FAIL (exit code 1).
 
 Usage: python -m legosnark_tpu_torch.examples.matrixsc [MIN_D] [MAX_D]
-       [--cpu]   (n = 2^D per dimension)
+       [--hv] [--cpu]   (n = 2^D per dimension)
 """
 from __future__ import annotations
 
@@ -58,9 +60,10 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def run(d: int, device=None) -> dict:
-    """CPmmp at n = 2^d; returns inputs, key, commitments, proof, the
-    challenges and the phase times in seconds."""
+def run(d: int, device=None, fs: bool = True) -> dict:
+    """CPmmp at n = 2^d, Fiat-Shamir unless fs=False; returns inputs, key,
+    commitments, proof, the challenges, `ok` and the phase times in
+    seconds (`verify_s` among them)."""
     dev = resolve_device(device)
     n = 1 << d
     rng = np.random.default_rng(17 + d)
@@ -89,11 +92,13 @@ def run(d: int, device=None) -> dict:
     times["keygen_s"] = time.perf_counter() - t0
 
     nonces = cpmat.make_nonces(d, seed=d, device=dev)
-    chal = lrand.rand_fr_mont(rng, d, dev)
-    hv = {"eq_e": lrand.rand_fr_mont(rng, d, dev),
-          "prd_e": lrand.rand_fr_mont(rng, 1, dev)}
-    r = lrand.rand_fr_mont(rng, d, dev)
-    s = lrand.rand_fr_mont(rng, d, dev)
+    out = {"n": n, "A": Am, "B": Bm, "C": Cm, "key": key, "nonces": nonces}
+    if not fs:
+        out["chal"] = lrand.rand_fr_mont(rng, d, dev)
+        out["hv"] = {"eq_e": lrand.rand_fr_mont(rng, d, dev),
+                     "prd_e": lrand.rand_fr_mont(rng, 1, dev)}
+        out["r"] = lrand.rand_fr_mont(rng, d, dev)
+        out["s"] = lrand.rand_fr_mont(rng, d, dev)
 
     t0 = time.perf_counter()
     a_cm = cpmat.commit_matrix(key, Am)
@@ -102,27 +107,45 @@ def run(d: int, device=None) -> dict:
     times["commit_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    pf = cpmat.prove_output_in_clear(key, Am, Bm, Cm, r, s, nonces,
-                                     challenges=chal, hv_rand=hv)
+    if fs:
+        pf = cpmat.prove_output_in_clear_fs(key, Am, Bm, Cm, a_cm, b_cm,
+                                            nonces)
+    else:
+        pf = cpmat.prove_output_in_clear(
+            key, Am, Bm, Cm, out["r"], out["s"], nonces,
+            challenges=out["chal"], hv_rand=out["hv"])
     _sync(dev)
     times["prove_s"] = time.perf_counter() - t0
 
-    print(f"=== CPmmp n={n}x{n} (d={d}) honest-verifier on {dev} ===")
-    for phase in ("data", "keygen", "commit", "prove"):
+    t0 = time.perf_counter()
+    if fs:
+        ok = cpmat.verify_output_in_clear_fs(key, a_cm, b_cm, Cm, pf)
+    else:
+        ok = cpmat.verify_output_in_clear(key, a_cm, b_cm, Cm, pf,
+                                          hv_rand=out["hv"])
+    ok = bool(ok)                      # reads the result: a sync
+    times["verify_s"] = time.perf_counter() - t0
+
+    mode = "fiat-shamir" if fs else "honest-verifier"
+    print(f"=== CPmmp n={n}x{n} (d={d}) {mode} on {dev} ===")
+    for phase in ("data", "keygen", "commit", "prove", "verify"):
         print(f"## matrix_{phase}_d{d}: {times[phase + '_s']:.3f}s", flush=True)
-    print("## verify: needs the pairing, not in this package yet")
-    return {"n": n, "A": Am, "B": Bm, "C": Cm, "key": key, "a_comm": a_cm,
-            "b_comm": b_cm, "proof": pf, "nonces": nonces, "chal": chal,
-            "hv": hv, "r": r, "s": s, "times": times}
+    print(f"VERIFY {'OK' if ok else 'FAIL'}", flush=True)
+    out.update({"a_comm": a_cm, "b_comm": b_cm, "proof": pf, "ok": ok,
+                "times": times})
+    return out
 
 
 def main(argv):
+    flags = {"--cpu", "--hv"}
     device = "cpu" if "--cpu" in argv else None
-    argv = [a for a in argv if a != "--cpu"]
+    fs = "--hv" not in argv
+    argv = [a for a in argv if a not in flags]
     min_d = int(argv[0]) if argv else 2
     max_d = int(argv[1]) if len(argv) > 1 else min_d
     for d in range(min_d, max_d + 1):
-        run(d, device=device)
+        if not run(d, device=device, fs=fs)["ok"]:
+            raise SystemExit(1)
 
 
 if __name__ == "__main__":

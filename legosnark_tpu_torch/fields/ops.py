@@ -14,6 +14,14 @@ from . import limb as fl
 from .limb import FieldSpec
 
 
+def stacked(fn, pairs) -> list:
+    """fn applied once to stacked operands: [(a1, b1), (a2, b2), ...] ->
+    [fn(a1, b1), fn(a2, b2), ...]. All operands broadcast to one shape;
+    on the card the stack costs one launch of each kernel fn runs."""
+    xs = torch.broadcast_tensors(*(t for pr in pairs for t in pr))
+    return list(fn(torch.stack(xs[0::2]), torch.stack(xs[1::2])).unbind(0))
+
+
 def ext_shape(shape, k: int):
     """Insert a tower/limb axis of size k ahead of the vector axis."""
     shape = tuple(shape)
@@ -85,7 +93,11 @@ class FqOps:
 
 
 class Fq2Ops:
-    """Quadratic extension Fq[u]/(u^2+1) over a base FqOps."""
+    """Quadratic extension Fq[u]/(u^2+1) over a base FqOps.
+
+    add, sub and neg act on both coefficients at once (the field ops are
+    elementwise over leading axes); each product runs its base products
+    as one stacked call (`stacked`), one K1 launch on the card."""
 
     ndim = 3
 
@@ -104,35 +116,56 @@ class Fq2Ops:
         return torch.stack([c0, c1], dim=-3)
 
     def add(self, a, b):
-        F = self.base
-        return self.pack(F.add(self.c0(a), self.c0(b)),
-                         F.add(self.c1(a), self.c1(b)))
+        return self.base.add(a, b)
 
     def sub(self, a, b):
-        F = self.base
-        return self.pack(F.sub(self.c0(a), self.c0(b)),
-                         F.sub(self.c1(a), self.c1(b)))
+        return self.base.sub(a, b)
 
     def neg(self, a):
-        F = self.base
-        return self.pack(F.neg(self.c0(a)), F.neg(self.c1(a)))
+        return self.base.neg(a)
+
+    def conj(self, a):
+        return self.pack(self.c0(a), self.base.neg(self.c1(a)))
 
     def mul(self, a, b):
-        # Karatsuba: 3 base muls
+        # Karatsuba: 3 base products in one call
         F = self.base
+        a, b = torch.broadcast_tensors(a, b)
         a0, a1, b0, b1 = self.c0(a), self.c1(a), self.c0(b), self.c1(b)
-        t0 = F.mul(a0, b0)
-        t1 = F.mul(a1, b1)
-        t2 = F.mul(F.add(a0, a1), F.add(b0, b1))
+        s = F.add(torch.stack([a0, b0]), torch.stack([a1, b1]))
+        t0, t1, t2 = F.mul(torch.stack([a0, a1, s[0]]),
+                           torch.stack([b0, b1, s[1]])).unbind(0)
         return self.pack(F.sub(t0, t1), F.sub(t2, F.add(t0, t1)))
 
     def sqr(self, a):
-        # (a0+a1)(a0-a1), 2 a0 a1
+        # (a0+a1)(a0-a1), 2 a0 a1: 2 base products in one call
         F = self.base
         a0, a1 = self.c0(a), self.c1(a)
-        c0 = F.mul(F.add(a0, a1), F.sub(a0, a1))
-        t = F.mul(a0, a1)
+        c0, t = F.mul(torch.stack([F.add(a0, a1), a0]),
+                      torch.stack([F.sub(a0, a1), a1])).unbind(0)
         return self.pack(c0, F.add(t, t))
+
+    def inv(self, a):
+        F = self.base
+        a0, a1 = self.c0(a), self.c1(a)
+        n0, n1 = F.mul(torch.stack([a0, a1]), torch.stack([a0, a1])).unbind(0)
+        ninv = F.inv(F.add(n0, n1))
+        return self.pack(*F.mul(torch.stack([a0, F.neg(a1)]),
+                                ninv).unbind(0))
+
+    def mul_by_xi(self, a):
+        """Multiply by xi = 9 + u (the Fq6 non-residue):
+        (9 a0 - a1) + (a0 + 9 a1) u, 9x = 8x + x by three doublings."""
+        F = self.base
+        x2 = F.add(a, a)
+        x4 = F.add(x2, x2)
+        x9 = F.add(F.add(x4, x4), a)
+        return self.pack(F.sub(self.c0(x9), self.c1(a)),
+                         F.add(self.c0(a), self.c1(x9)))
+
+    def mul_base(self, a, s):
+        """Multiply by a base-field scalar s [..., 8, V]."""
+        return self.base.mul(a, s[..., None, :, :])
 
     def zero(self, shape, device):
         return self.base.zero(ext_shape(shape, 2), device)

@@ -1,6 +1,6 @@
-"""CPpoly - multilinear polynomial commitment (PST13 style), prover side.
+"""CPpoly - multilinear polynomial commitment (PST13 style).
 
-Counterpart of `legosnark_tpu/gadgets/poly.py:58-204`:
+Counterpart of `legosnark_tpu/gadgets/poly.py:58-204, 309-363`:
 
   keygen(d):  secret s in Fr^d, alpha in Fr.
               level-j G1 bases  B_j[p] = eq(p, s_{j..d-1}) * G   (2^{d-j} pts)
@@ -9,12 +9,24 @@ Counterpart of `legosnark_tpu/gadgets/poly.py:58-204`:
   commit(v):  C = <B_0, v>, Ca = <A_0, v>
   prove(v,r): per round i: quotient table q_i = hi - lo,
               W_i = <B_{i+1}, q_i>, Wa_i = <A_{i+1}, q_i>
+  verify:     e(ans*G - C - sum_i r_i W_i, G2) * prod_i e(W_i, S_i) == 1
+              (the JAX package's e(ans*G - C, G2) * prod_i e(W_i, S_i -
+              r_i*G2) by bilinearity), and for each i on its own
+              e(W_i, G2a) == e(Wa_i, G2)
+  check_commit: e(C, G2a) == e(Ca, G2)
+
+The verifiers return their pairing equations as groups of pairs
+(`commit_pairings`, `verify_pairings`) so that a caller can check the
+equations of several openings with one Miller loop and one final
+exponentiation (`curve.pairing.pairing_checks`); every equation is still
+checked on its own, so no cancellation across equations is possible.
 
 Variable convention as in `prototools.mle` (big-endian; round i binds
 variable i). Tables are [8, 2^d], points [8, d].
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -23,12 +35,14 @@ import torch
 from ..config import resolve_device
 from ..curve import bn254
 from ..curve import msm as msm_mod
+from ..curve import pairing as pr
 from ..curve.group import (G1, G2, Point, g1_generator, g2_generator,
                            point_concat, point_map, point_stack,
                            to_affine_batch)
 from ..fields import limb as fl
 from ..prototools import mle
 from ..utils import rand as lrand
+from ..utils import util
 
 FR = bn254.FR
 
@@ -125,3 +139,76 @@ def prove(key: PolyKey, v_mont, r_mont) -> PolyPf:
         was.append(wa)
         v = mle.fold(v, r_mont[..., i : i + 1])
     return PolyPf(point_concat(ws), point_concat(was))
+
+
+def keygen_cached(d: int, seed: int = 0, cache_dir=None,
+                  device=None) -> PolyKey:
+    """`keygen` through a disk cache of the SRS (`utils.util`): a second
+    call with the same d and seed loads the key instead of rebuilding it.
+    The cache lives in `srs_cache/` beside the package unless `cache_dir`
+    names another directory; its files carry the port's own names and
+    layout, never the JAX package's."""
+    dev = resolve_device(device)
+    cache = Path(cache_dir or util.SRS_CACHE_DIR)
+    path = cache / f"pst13_torch_d{d}_s{seed}.npz"
+    if path.exists():
+        g = util.load_point_group(path, dev)
+        return PolyKey(tuple(g[f"b{j:02d}"] for j in range(d + 1)),
+                       tuple(g[f"a{j:02d}"] for j in range(d + 1)),
+                       g["g2s"], g["g2a"], g["g1"], g["g2"])
+    key = keygen(d, seed, dev)
+    group = {"g2s": key.g2_s, "g2a": key.g2_alpha, "g1": key.g1,
+             "g2": key.g2}
+    for j in range(d + 1):
+        group[f"b{j:02d}"] = key.bases[j]
+        group[f"a{j:02d}"] = key.bases_a[j]
+    util.save_point_group(path, group)
+    return key
+
+
+def commit_pairings(key: PolyKey, cm: PolyComm) -> list:
+    """The knowledge equation e(C, G2a) * e(-Ca, G2) == 1 as one group."""
+    return [(point_concat([cm.c, G1.neg(cm.ca)]),
+             point_concat([key.g2_alpha, key.g2]))]
+
+
+def verify_pairings(key: PolyKey, cm: PolyComm, ans_commit: Point, r_mont,
+                    pf: PolyPf, rw: Point = None) -> list:
+    """The opening's pairing equations, as groups of pairs:
+      main: e(ans*G - C - sum_i r_i W_i, G2) * prod_i e(W_i, S_i) == 1,
+        the JAX package's e(ans*G - C, G2) * prod_i e(W_i, S_i - r_i G2)
+        with r_i moved to the G1 side (a batched G1 scalar multiplication
+        in place of a G2 one);
+      knowledge, one group per i: e(W_i, G2a) * e(-Wa_i, G2) == 1.
+    Checking the knowledge equations in one product would allow
+    cancellation across i, so each is a group of its own. `rw` is
+    sum_i r_i W_i when the caller computed it with other scalar
+    multiplications."""
+    d = poly_d(key)
+    if rw is None:
+        rw = G1.sum_reduce(G1.scalar_mul(pf.witness,
+                                         fl.from_mont(FR, r_mont)))
+    lhs = G1.add(ans_commit, G1.neg(G1.add(cm.c, rw)))
+    groups = [(point_concat([lhs, pf.witness]),
+               point_concat([key.g2, key.g2_s]))]
+    g2p = point_concat([key.g2_alpha, key.g2])
+    nwa = G1.neg(pf.witnessa)
+    for i in range(d):
+        groups.append((point_concat([
+            point_map(lambda x, i=i: x[..., i : i + 1], pf.witness),
+            point_map(lambda x, i=i: x[..., i : i + 1], nwa)]), g2p))
+    return groups
+
+
+def check_commit(key: PolyKey, cm: PolyComm):
+    """Knowledge well-formedness e(C, G2a) == e(Ca, G2) -> bool []."""
+    return pr.pairing_checks(commit_pairings(key, cm)).all()
+
+
+def verify(key: PolyKey, cm: PolyComm, ans_commit: Point, r_mont,
+           pf: PolyPf):
+    """The opening's main and knowledge equations -> bool []: one Miller
+    loop over the 3d + 1 pairs and one final exponentiation of width
+    d + 1."""
+    return pr.pairing_checks(
+        verify_pairings(key, cm, ans_commit, r_mont, pf)).all()

@@ -8,7 +8,7 @@ to `build/kernels/` beside the package, so a second process reuses them.
 The first kernel launch builds everything; `build()` does it explicitly.
 
 `launches` counts, per kernel, the launches made by the wrappers in
-`fields/cuda_limb.py` and `curve/cuda_group.py`.
+`fields/cuda_limb.py`, `curve/cuda_group.py` and `probes/mont_variants.py`.
 """
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("mont_mul.cu", "g1.cu")
+SOURCES = ("mont_mul.cu", "g1.cu", "mont_sos.cu", "mont_tc.cu",
+           "limb_product.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +37,9 @@ _SIGNATURES = {
     "lsk_mont_mul": [_P, _P, _P, _LL, _LL, _P, _P],
     "lsk_g1_add": [_P] * 9 + [_LL, _LL, _P, _P],
     "lsk_g1_double": [_P] * 6 + [_LL, _LL, _P, _P],
+    "lsk_mont_mul_sos": [_P, _P, _P, _LL, _LL, _P, _P],
+    "lsk_mont_mul_tc": [_P, _P, _P, _LL, _LL, _P, _P],
+    "lsk_limb_product": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
 }
 _libs: dict = {}
 #: source -> {"seconds": build time (0 when reused), "log": nvcc output}

@@ -1,6 +1,6 @@
 """Multilinear-extension engines: folds, eq tables, sumcheck round polys.
 
-Counterpart of `legosnark_tpu/prototools/mle.py:39-234`. One primitive,
+Counterpart of `legosnark_tpu/prototools/mle.py:39-266`. One primitive,
 `fold(table, r)`, binds the top variable:
 v'[p] = v[p | x0=0] + r*(v[p | x0=1] - v[p | x0=0]).
 
@@ -10,6 +10,8 @@ vector axis as [..., 8, 2^d]; variable i is bit d-1-i of the index
 halves. Tables are Montgomery-form Fr; challenge lists are [8, d].
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -48,6 +50,17 @@ def mk_beta(rho):
         t1 = fl.mont_mul(FR, t, r)
         t = torch.cat([t0, t1], dim=-1)
     return t
+
+
+def eval_beta_point(rho, r):
+    """beta(rho, r) = prod_i (rho_i r_i + (1 - rho_i)(1 - r_i)), the
+    verifier's closed form of the eq table: rho, r [8, d] -> [8, 1]."""
+    one = fl.one(FR, (), rho.device)
+    rho, r = torch.broadcast_tensors(rho, r)
+    x = torch.stack([rho, fl.sub(FR, one, rho)])
+    y = torch.stack([r, fl.sub(FR, one, r)])
+    t = fl.mont_mul(FR, x, y)
+    return field_prod(fl.add(FR, t[0], t[1]))
 
 
 def matrix_mle_fold(A, beta_rho):
@@ -131,6 +144,32 @@ def round_poly(tables):
                         torch.cat([zerorow, c_sl]))
     summed = field_sum(coeffs)                       # [k+1, 8, 1]
     return summed[..., 0].movedim(0, -1)
+
+
+class SumcheckRounds(NamedTuple):
+    h_coeffs: torch.Tensor   # [d, 8, k+1] round polynomials, ascending
+    finals: torch.Tensor     # [k, 8, 1] each table folded to a point
+    zs: torch.Tensor         # [8, d+1] claimed partial sums z_0..z_d
+
+
+def prove_rounds(tables, challenges) -> SumcheckRounds:
+    """All d sumcheck rounds of sum_p prod_t T_t[p] with injected
+    challenges: tables [k, 8, 2^d], challenges [8, d]."""
+    d = challenges.shape[-1]
+    if tables.shape[-1] != 1 << d:
+        raise ValueError("table size does not match the challenges")
+    hs, zs = [], []
+    for i in range(d):
+        h = round_poly(tables)                       # [8, k+1]
+        hs.append(h)
+        r = challenges[..., i : i + 1]
+        zs.append(poly_eval(h, r))                   # z_{i+1} = h_i(r_i)
+        tables = fold(tables, r)
+    dev = tables.device
+    z0 = fl.add(FR, poly_eval(hs[0], fl.zero(FR, (), dev)),
+                poly_eval(hs[0], fl.one(FR, (), dev)))
+    return SumcheckRounds(h_coeffs=torch.stack(hs), finals=tables,
+                          zs=torch.cat([z0] + zs, dim=-1))
 
 
 def poly_eval(coeffs, x):

@@ -1,5 +1,6 @@
 """The port's CPmmp prover (keygen -> commit -> prove, honest-verifier
-mode) against the JAX package at n = 4, element for element.
+mode) against the JAX package at n = 4, element for element, and the
+port's verifier on the JAX package's own proof.
 
 One module-scoped fixture runs the JAX side once: keygen(4, seed=1), the
 staged commitments of A and B and the staged in-clear prover (equal to
@@ -128,3 +129,23 @@ def test_commit_and_prove_equal_jax(jax_run):
     assert pints(sp.finals) == jints(jp.finals)
     assert pf.c_poly_pf is None
     assert convert.to_ints(pf.c_ans_comm) == convert.to_ints(pf.t_comm)
+
+
+def test_port_verifies_the_jax_proof(jax_run):
+    """`convert` carries the JAX package's n = 4 honest-verifier proof, key
+    and commitments into the port: the port's verifier accepts them, and
+    rejects the proof with its round commitments rotated. This holds the
+    verifier against the reference without running the JAX verifier."""
+    key = convert.matkey_from_jax(jax_run["key"], "cpu")
+    a_cm = convert.polycomm_from_jax(jax_run["a_cm"], "cpu")
+    b_cm = convert.polycomm_from_jax(jax_run["b_cm"], "cpu")
+    C = field(jax_run["mats"][2])
+    pf = convert.matproof_from_jax(jax_run["pf"], "cpu")
+    hv = {k: field(v) for k, v in jax_run["hv"].items()}
+    assert bool(tmat.verify_output_in_clear(key, a_cm, b_cm, C, pf,
+                                            hv_rand=hv))
+    sc = pf.sc_proof
+    bad = pf._replace(sc_proof=sc._replace(
+        h_comms=Point(*(t.roll(1, 0) for t in sc.h_comms))))
+    assert not bool(tmat.verify_output_in_clear(key, a_cm, b_cm, C, bad,
+                                                hv_rand=hv))

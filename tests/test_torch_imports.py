@@ -16,7 +16,8 @@ from legosnark_tpu_torch.examples import matrixsc
 from legosnark_tpu_torch.fields import cuda_limb
 from legosnark_tpu_torch.fields import limb as fl
 from legosnark_tpu_torch.gadgets import matrix, poly
-from legosnark_tpu_torch.utils import rand
+from legosnark_tpu_torch.probes import mont_variants
+from legosnark_tpu_torch.utils import rand, transcript
 
 # The plain path runs many small torch ops; idle intra-op threads spin and
 # starve the other test processes, so the port's tests use one thread.
@@ -63,7 +64,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("fn", [matrix.keygen, poly.keygen, matrix.make_nonces,
                                 matrixsc.run, rand.rand_fr_mont,
-                                tg.g1_generator, tg.g2_generator])
+                                tg.g1_generator, tg.g2_generator,
+                                matrix.keygen_cached, poly.keygen_cached,
+                                transcript.Transcript, mont_variants.measure])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default is None
     assert config.resolve_device("cpu").type == "cpu"
@@ -104,6 +107,11 @@ def test_other_devices_raise_instead_of_falling_back():
         cuda_limb.mont_mul(bn254.FR, a, a)
     with pytest.raises(ValueError, match="device"):
         cuda_group.add_points((a, a, a), (a, a, a))
+    for fn in (mont_variants.mont_mul_sos, mont_variants.mont_mul_tc):
+        with pytest.raises(ValueError, match="device"):
+            fn(bn254.FR, a, a)
+    with pytest.raises(ValueError, match="device"):
+        mont_variants.limb_product(a, a, "operand")
 
 
 def test_kernel_sources_and_build_setup():

@@ -13,6 +13,8 @@ from legosnark_tpu_torch.curve import bn254, cuda_group, msm
 from legosnark_tpu_torch.curve import group as tg
 from legosnark_tpu_torch.fields import cuda_limb
 from legosnark_tpu_torch.fields import limb as fl
+from legosnark_tpu_torch.probes import mont_variants as mv
+from legosnark_tpu_torch.utils.bench import edge_ints
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -71,3 +73,38 @@ def test_k2_k3_equal_plain(cuda):
     for got, want in zip(d, cuda_group.double_point_plain(p)):
         assert torch.equal(got, want)
     assert tg.g1_to_ints(tg.Point(*(t[:, 1:2] for t in s))) == [None]
+
+
+@pytest.mark.parametrize("spec", [bn254.FR, bn254.FQ], ids=["Fr", "Fq"])
+def test_p1_equals_plain_and_k1(cuda, spec):
+    gen = torch.Generator().manual_seed(2)
+    p = spec.p
+    xs = edge_ints(p) + _rand(gen, 1500, 2 * p)
+    ys = edge_ints(p)[::-1] + _rand(gen, 1500, 2 * p)
+    a = fl.tensor(fl.ints_to_limbs(xs), cuda)
+    b = fl.tensor(fl.ints_to_limbs(ys), cuda)
+    kernels.reset_launches()
+    sos = mv.mont_mul_sos(spec, a, b)
+    tc = mv.mont_mul_tc(spec, a, b)
+    torch.cuda.synchronize()
+    assert kernels.launches["mont_mul_sos"] == 1
+    assert kernels.launches["mont_mul_tc"] == 1
+    k1 = cuda_limb.mont_mul(spec, a, b)
+    assert torch.equal(sos, mv.mont_mul_sos_plain(spec, a, b))
+    assert torch.equal(tc, mv.mont_mul_tc_plain(spec, a, b))
+    assert torch.equal(sos, k1) and torch.equal(tc, k1)
+
+
+@pytest.mark.parametrize("variant", mv.VARIANTS)
+def test_p2_equals_plain(cuda, variant):
+    gen = torch.Generator().manual_seed(3)
+    full = (1 << 256) - 1
+    xs = [0, full, full] + _rand(gen, 1500, 1 << 256)
+    ys = [full, full, 1] + _rand(gen, 1500, 1 << 256)
+    a = fl.tensor(fl.ints_to_limbs(xs), cuda)
+    b = fl.tensor(fl.ints_to_limbs(ys), cuda)
+    kernels.reset_launches()
+    got = mv.limb_product(a, b, variant)
+    torch.cuda.synchronize()
+    assert kernels.launches[f"limb_product_{variant}"] == 1
+    assert torch.equal(got, mv.limb_product_plain(a, b, variant))

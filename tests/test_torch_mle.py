@@ -78,6 +78,19 @@ def test_matrix_fold_round_poly_matmul():
          jnp.moveaxis(jA, 0, -2).reshape(20, N * N))
 
 
+def test_verifier_pieces_equal_jax():
+    """eval_beta_point, the closed form of the eq table, and prove_rounds,
+    the injected-challenge round loop."""
+    rho, jrho = both((D,), 10)
+    r, jr = both((D,), 11)
+    same(mle.eval_beta_point(rho, r), jmle.eval_beta_point(jrho, jr))
+    t, jt = both((2, 4), 12)
+    got = mle.prove_rounds(t, r[:, :2])
+    want = jmle.prove_rounds(jt, jr[:, :2])
+    for g, w in zip(got, want):
+        same(g, w)
+
+
 def test_samplers_draw_what_jax_draws():
     for n in (1, 5, 64):
         got = trand.rand_fr_limbs_fast(np.random.default_rng(n), n)
