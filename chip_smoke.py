@@ -3,9 +3,12 @@
 
 Phases, each printing its result and times on its own line:
   1. start-up: versions, the card and its power limit, the kernel build;
-  2. kernels K1 (Montgomery product), K2 (G1 add) and K3 (G1 double)
-     against their plain PyTorch versions at 2^20 elements, bit for bit,
-     with edge values, the identity, P + P and P + (-P);
+  2. kernels K1 (Montgomery product), K2 (G1 add) and K3 (G1 double,
+     also with times = 4 and 17 doublings in one launch) against their
+     plain PyTorch versions at 2^20 elements, bit for bit, with edge
+     values, the identity, P + P and P + (-P); then K2, K3 and K3 with
+     times = 17 at widths 1, 2, 32 and 2^10, bit for bit, with device us
+     per launch and host us per wrapper call;
   3. a 2^20-point MSM with c = 17 (signed digits) checked by a trapdoor:
      points k_i*G with known k_i, expected (sum s_i k_i mod r)*G;
   4. CPmmp at n = 4 on the card against the same run on the CPU, element
@@ -16,17 +19,19 @@ Phases, each printing its result and times on its own line:
      keygen, commit A and B, prove, verify), checked without a pairing by
      rebuilding keygen's secrets; four tampered proofs (a round commitment
      swapped, a final changed, an opening witness changed, an entry of C
-     changed) verify false; the kernels' launch counts of the run, and the
-     launches and seconds of one more verify alone;
+     changed) verify false; the kernels' launch counts of the run and
+     their widths, and the launches and seconds of one more verify alone;
   6. the probes P1a (SOS product), P1b (tensor-core reduction) and P2
      (limb product, three variants) against their plain versions and K1
      at 2^20, bit for bit, with their times beside K1's; the pairing on
      the card: bilinearity e(aG1, bG2) = e(G1, G2)^(ab) at width 64 and
      e(G1, G2) equal to the CPU's;
   7. the Fiat-Shamir path at n = 1024 with phase 5's key and data: prove
-     and verify true, a tampered proof false, with its launch counts.
-Then a `kernels` JSON line, the `nvidia-smi` name and power limit line,
-and as the last line {"ok": true, "device": {...}}.
+     and verify true, a tampered proof false, with its launch counts and
+     their widths.
+Then a `kernels` JSON line (with `ms_by_width` for K2 and K3), the
+`nvidia-smi` name and power limit line, and as the last line
+{"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7]   (phase 7 needs 5)
 Needs one CUDA card; exits non-zero without one, or when any check fails.
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +67,13 @@ IMUL_PER_TC = 2 * 64
 TC_OPS_PER_ELEM = 6 * 16 * 8 * 32 * 2 // 8
 INT8_TC_OPS_PER_S = 1979e12
 LIMB_BYTES = 32
+#: K3's `times` checked and timed at 2^20 (4: scalar multiplication's
+#: windows, 17: the Horner step of a c = 17 MSM)
+DOUBLE_TIMES = (4, 17)
+#: the main path's narrow launch widths (Horner tails, tables, verifier)
+NARROW_WIDTHS = (1, 2, 32, 1 << 10)
+#: the main path's kernels, whose launches phases 5 and 7 count
+MAIN_KERNELS = ("mont_mul", "g1_add", "g1_double")
 
 
 def log(msg: str) -> None:
@@ -145,8 +158,11 @@ def phase_startup(torch, kernels) -> dict:
     build_s = time.perf_counter() - t0
     for name, rec in log_.items():
         regs = [ln.strip() for ln in rec["log"].splitlines()
-                if "registers" in ln]
+                if "registers" in ln or "spill" in ln]
         log(f"# build {name}: {rec['seconds']:.1f}s; {'; '.join(regs)}")
+    if log_["g1.cu"]["seconds"]:   # a fresh build: ptxas's report is there
+        check(not re.search(r"[1-9][0-9]* bytes spill", log_["g1.cu"]["log"]),
+              "K2 and K3 build without spills")
     log(f"# phase 1 ok: kernels built in {build_s:.1f}s")
     return {"smi": smi, "build_s": build_s}
 
@@ -232,10 +248,62 @@ def phase_kernels(torch, np, dev, n: int) -> dict:
                        "bound_ms": tb, "bound_by": by}
         log(f"# phase 2 {name} n={n}: max_abs_err {err} kernel {ms:.4f} ms "
             f"plain {plain_ms:.2f} ms bound {tb:.4f} ms ({by})")
+    # K3 with `times` doublings in one launch, at 2^20
+    for k in DOUBLE_TIMES:
+        err = max(word_err(g, w) for g, w in zip(
+            cuda_group.double_point(Pc, k),
+            cuda_group.double_point_plain(Pc, k)))
+        ms = timed_ms(lambda: cuda_group.double_point(Pc, k), dev, 5)
+        tb, by = bound(6 * LIMB_BYTES * n, k * 9 * IMUL_PER_MONT * n)
+        stats["g1_double"][f"times{k}"] = {"max_abs_err": err, "ms": ms,
+                                           "bound_ms": tb, "bound_by": by}
+        stats["g1_double"]["max_abs_err"] = max(
+            stats["g1_double"]["max_abs_err"], err)
+        log(f"# phase 2 g1_double times={k} n={n}: max_abs_err {err} kernel "
+            f"{ms:.4f} ms bound {tb:.4f} ms ({by})")
+    _narrow_widths(dev, Pc, Qc, stats)
     for name, st in stats.items():
         check(st["max_abs_err"] == 0, f"{name} equals its plain version")
     log("# phase 2 ok: K1, K2, K3 bit-identical to their plain versions")
     return stats
+
+
+def _narrow_widths(dev, Pc, Qc, stats) -> None:
+    """K2, K3 and K3 with times = 17 at the main path's narrow widths:
+    each held bit for bit against its plain version (K3 also with times =
+    4), then device us per launch (CUDA events over 200 back-to-back
+    launches) and host us per wrapper call."""
+    from legosnark_tpu_torch.curve import cuda_group
+    from legosnark_tpu_torch.utils.bench import launch_us, word_err
+
+    dbl = cuda_group.double_point
+    dbl_plain = cuda_group.double_point_plain
+    # (name, kernel, plain version, row of `stats`, key suffix of its
+    # width table, None where the variant is only checked)
+    variants = (
+        ("g1_add", cuda_group.add_points, cuda_group.add_points_plain,
+         "g1_add", ""),
+        ("g1_double", lambda p, q: dbl(p), lambda p, q: dbl_plain(p),
+         "g1_double", ""),
+        ("g1_double times=4", lambda p, q: dbl(p, 4),
+         lambda p, q: dbl_plain(p, 4), "g1_double", None),
+        ("g1_double times=17", lambda p, q: dbl(p, 17),
+         lambda p, q: dbl_plain(p, 17), "g1_double", "_times17"),
+    )
+    for w in NARROW_WIDTHS:
+        p = tuple(t[:, :w].contiguous() for t in Pc)
+        q = tuple(t[:, :w].contiguous() for t in Qc)
+        for name, fn, pfn, row, key in variants:
+            err = max(word_err(g, v) for g, v in zip(fn(p, q), pfn(p, q)))
+            st = stats[row]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if key is None:
+                continue
+            dev_us, host_us = launch_us(lambda: fn(p, q), dev)
+            st.setdefault("ms_by_width" + key, {})[w] = dev_us / 1e3
+            st.setdefault("host_ms_by_width" + key, {})[w] = host_us / 1e3
+            log(f"# phase 2 {name} width {w}: max_abs_err {err} device "
+                f"{dev_us:.2f} us/launch host {host_us:.2f} us/call")
 
 
 def phase_msm(torch, np, dev, n: int, c: int) -> float:
@@ -353,11 +421,13 @@ def phase_cpmmp(torch, np, dev, d: int, kernels) -> dict:
     _sync(torch, dev)
     total_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
+    widths = _widths(kernels)
     check(res["ok"], "CPmmp n=1024 honest-verifier proof verifies")
     log(f"# phase 5 CPmmp n={res['n']}: launches {json.dumps(launches)} "
         f"times {json.dumps({k: round(v, 3) for k, v in res['times'].items()})} "
         f"total {total_s:.1f}s")
-    for name in ("mont_mul", "g1_add", "g1_double"):
+    log(f"# phase 5 launch widths: {json.dumps(widths)}")
+    for name in MAIN_KERNELS:
         check(launches.get(name, 0) > 0, f"{name} launched on the main path")
 
     # the reference works on host ints only: A and B from the example's
@@ -435,13 +505,20 @@ def phase_cpmmp(torch, np, dev, d: int, kernels) -> dict:
 
     verify_s, verify_launches = _verify_alone(torch, dev, kernels, res)
     log(f"# phase 5 verify alone: {verify_s:.3f}s, launches "
-        f"{json.dumps(verify_launches)}")
+        f"{json.dumps(verify_launches)}, widths "
+        f"{json.dumps(_widths(kernels))}")
     _tampers(torch, dev, res)
     log(f"# phase 5 ok: CPmmp n={n} honest-verifier verify true, four "
         f"tampered proofs false")
     return {"launches": launches, "times": res["times"], "total_s": total_s,
             "verify_s": verify_s, "verify_launches": verify_launches,
             "res": res}
+
+
+def _widths(kernels) -> dict:
+    """Launches of K1-K3 since the last reset, by power-of-two width."""
+    return {k: dict(sorted(kernels.launch_widths.get(k, {}).items()))
+            for k in MAIN_KERNELS}
 
 
 def _verify_hv(res, proof=None, C=None):
@@ -608,8 +685,9 @@ def phase_fs(torch, dev, kernels, res) -> dict:
     launches = dict(kernels.launches)
     log(f"# phase 7 FS CPmmp n={key.n}: prove {prove_s:.3f}s verify "
         f"{verify_s:.3f}s verdict {ok}; launches {json.dumps(launches)}")
+    log(f"# phase 7 launch widths: {json.dumps(_widths(kernels))}")
     check(ok, "Fiat-Shamir proof at n=1024 verifies")
-    for name in ("mont_mul", "g1_add", "g1_double"):
+    for name in MAIN_KERNELS:
         check(launches.get(name, 0) > 0, f"{name} launched on the FS path")
     sc = pf.sc_proof
     bad = pf._replace(sc_proof=sc._replace(h_comms=Point(
@@ -693,7 +771,10 @@ def main(argv) -> int:
                      "max_abs_err": st.get("max_abs_err"),
                      "ms": st.get("ms"), "plain_ms": st.get("plain_ms"),
                      "bound_ms": st.get("bound_ms"),
-                     "bound_by": st.get("bound_by"), "library_ms": None})
+                     "bound_by": st.get("bound_by"), "library_ms": None,
+                     "ms_by_width": st.get("ms_by_width")})
+        rows[-1].update({k: v for k, v in st.items()
+                         if k.startswith(("times", "host_ms_by", "ms_by"))})
     summary = {"phase_s": round(time.perf_counter() - t_all, 1)}
     if hv:
         summary.update({"hv_1024": {k: round(v, 3)

@@ -8,8 +8,13 @@ with the plain version of K1 for every product, and agree with the
 kernels bit for bit: every intermediate stays in [0, 2p) under the
 contract of `fields/limb.py`, at every batch width.
 
+K3 takes `times` >= 1 and doubles each point that many times in one
+launch (the plain version loops the single doubling).
+
 Dispatch: CPU coordinates take the plain version, CUDA coordinates the
 kernel. Coordinates are (x, y, z) int32 tensors `[..., 8, n]` of one shape.
+Each launch is counted in `kernels.launches` and, by its width (points per
+launch), in `kernels.launch_widths`.
 """
 from __future__ import annotations
 
@@ -33,9 +38,17 @@ def add_points_plain(p, q):
     return tuple(rcb_add(FQ_PLAIN, FQ_PLAIN.const(bn254.B3_G1, dev), p, q))
 
 
-def double_point_plain(p):
-    dev = p[0].device
-    return tuple(rcb_double(FQ_PLAIN, FQ_PLAIN.const(bn254.B3_G1, dev), p))
+def _check_times(times: int) -> None:
+    if times < 1:
+        raise ValueError(f"double_point: times must be >= 1, got {times}")
+
+
+def double_point_plain(p, times: int = 1):
+    _check_times(times)
+    b3 = FQ_PLAIN.const(bn254.B3_G1, p[0].device)
+    for _ in range(times):
+        p = tuple(rcb_double(FQ_PLAIN, b3, p))
+    return p
 
 
 @functools.lru_cache(None)
@@ -63,7 +76,9 @@ def _check(name, coords):
             raise ValueError(f"{name}: coordinates must be contiguous")
 
 
-def _launch(name, fn_name, coords):
+def _launch(name, fn_name, coords, *args):
+    """Launch `fn_name` on the coordinates; `args` (ints) go between the
+    sizes and the constant block."""
     _check(name, coords)
     outs = [torch.empty_like(coords[0]) for _ in range(3)]
     total = coords[0].numel() // NLIMBS
@@ -71,11 +86,11 @@ def _launch(name, fn_name, coords):
         return tuple(outs)
     fn = kernels.function("g1.cu", fn_name)
     ptrs = [c.data_ptr() for c in coords] + [o.data_ptr() for o in outs]
-    err = fn(*ptrs, coords[0].shape[-1], total,
+    err = fn(*ptrs, coords[0].shape[-1], total, *args,
              ctypes.cast(_words(), ctypes.c_void_p),
              torch.cuda.current_stream(coords[0].device).cuda_stream)
     kernels.check("g1.cu", err, name)
-    kernels.launches[name] += 1
+    kernels.count(name, total)
     return tuple(outs)
 
 
@@ -86,8 +101,10 @@ def add_points(p, q):
     return _launch("g1_add", "lsk_g1_add", list(p) + list(q))
 
 
-def double_point(p):
-    """K3 wrapper: complete G1 doubling of a coordinate tuple."""
+def double_point(p, times: int = 1):
+    """K3 wrapper: `times` >= 1 complete G1 doublings of a coordinate
+    tuple, in one launch on the card."""
+    _check_times(times)
     if p[0].device.type == "cpu":
-        return double_point_plain(p)
-    return _launch("g1_double", "lsk_g1_double", list(p))
+        return double_point_plain(p, times)
+    return _launch("g1_double", "lsk_g1_double", list(p), times)

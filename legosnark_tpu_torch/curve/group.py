@@ -132,12 +132,19 @@ class CurveOps:
         dev = p.x.device
         return rcb_add(self.F, self.F.const(self.b3, dev), p, q)
 
-    def double(self, p: Point) -> Point:
+    def double(self, p: Point, times: int = 1) -> Point:
+        """[2^times] p for times >= 1: one K3 launch on G1, a loop of
+        doublings in torch code on G2."""
+        if times < 1:
+            raise ValueError(f"double: times must be >= 1, got {times}")
         if self.g1:
             from . import cuda_group
             c = [t.contiguous() for t in torch.broadcast_tensors(*p)]
-            return Point(*cuda_group.double_point(c))
-        return rcb_double(self.F, self.F.const(self.b3, p.x.device), p)
+            return Point(*cuda_group.double_point(c, times))
+        b3 = self.F.const(self.b3, p.x.device)
+        for _ in range(times):
+            p = rcb_double(self.F, b3, p)
+        return p
 
     def neg(self, p: Point) -> Point:
         return Point(p.x, self.F.neg(p.y), p.z)
@@ -167,8 +174,8 @@ class CurveOps:
     def scalar_mul(self, p: Point, k) -> Point:
         """[k]P for k canonical Fr limbs [..., 8, V]; point and scalar
         batches broadcast. Fixed 4-bit windows over 256 bits, MSB first:
-        a table of 0..15 times P, then per window four doublings and one
-        add of the table entry (the complete law absorbs 0*P)."""
+        a table of 0..15 times P, then per window four doublings (one call)
+        and one add of the table entry (the complete law absorbs 0*P)."""
         F = self.F
         dev = p.x.device
         kb = k.shape[:-2] + k.shape[-1:]
@@ -192,9 +199,7 @@ class CurveOps:
             if acc is None:
                 acc = entry
                 continue
-            for _ in range(4):
-                acc = self.double(acc)
-            acc = self.add(acc, entry)
+            acc = self.add(self.double(acc, times=4), entry)
         return acc
 
     # -- reductions --------------------------------------------------------

@@ -9,7 +9,8 @@ JAX package, for every window at once:
     2. suffix sums S[i] = sum_{t >= i} P_sorted[t] (`group.scan`, ~2n adds)
     3. window sum = sum_{t=1}^{2^(c-1)} S[first index with mag >= t]
        (torch.searchsorted, a gather, and a tree sum)
-  then a Horner combine over the windows with c doublings each.
+  then a Horner combine over the windows with c doublings each (one
+  `CurveOps.double(acc, times=c)` call, one K3 launch on G1).
 
 Digits are always signed (the bucket range halves, so c = 17 costs the
 boundary phase of an unsigned 16-bit window): the window count is
@@ -101,9 +102,7 @@ def msm(C: CurveOps, points: Point, scalars, c: int | None = None,
     # Horner from the most significant window down
     acc = point_map(lambda a: a[W - 1], S)
     for j in range(W - 2, -1, -1):
-        for _ in range(c):
-            acc = C.double(acc)
-        acc = C.add(acc, point_map(lambda a: a[j], S))
+        acc = C.add(C.double(acc, times=c), point_map(lambda a: a[j], S))
     return acc
 
 
@@ -119,10 +118,7 @@ def fixed_base_table(C: CurveOps, base: Point, c: int = 8,
     W = -(-bits // c)
     qs = [base]
     for _ in range(W - 1):
-        q = qs[-1]
-        for _ in range(c):
-            q = C.double(q)
-        qs.append(q)
+        qs.append(C.double(qs[-1], times=c))
     # Q_j on a leading axis: [W, .., 1]
     step = point_map(lambda *a: torch.stack(a), *qs)
     # multiples 0..2^c-1 by doubling blocks: T[2^i + m] = T[m] + 2^i Q

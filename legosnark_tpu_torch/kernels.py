@@ -8,7 +8,9 @@ to `build/kernels/` beside the package, so a second process reuses them.
 The first kernel launch builds everything; `build()` does it explicitly.
 
 `launches` counts, per kernel, the launches made by the wrappers in
-`fields/cuda_limb.py`, `curve/cuda_group.py` and `probes/mont_variants.py`.
+`fields/cuda_limb.py`, `curve/cuda_group.py` and `probes/mont_variants.py`;
+`launch_widths` splits them by width (elements per launch, in power-of-two
+buckets). Both go up only through `count`, where a wrapper launches.
 """
 from __future__ import annotations
 
@@ -30,13 +32,16 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: kernel name -> launches since the last `reset_launches()`
 launches: collections.Counter = collections.Counter()
+#: kernel name -> {w: launches over more than w/2 and at most w elements}
+launch_widths: collections.defaultdict = collections.defaultdict(
+    collections.Counter)
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "lsk_mont_mul": [_P, _P, _P, _LL, _LL, _P, _P],
     "lsk_g1_add": [_P] * 9 + [_LL, _LL, _P, _P],
-    "lsk_g1_double": [_P] * 6 + [_LL, _LL, _P, _P],
+    "lsk_g1_double": [_P] * 6 + [_LL, _LL, ctypes.c_int, _P, _P],
     "lsk_mont_mul_sos": [_P, _P, _P, _LL, _LL, _P, _P],
     "lsk_mont_mul_tc": [_P, _P, _P, _LL, _LL, _P, _P],
     "lsk_limb_product": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
@@ -48,6 +53,13 @@ build_log: dict = {}
 
 def reset_launches() -> None:
     launches.clear()
+    launch_widths.clear()
+
+
+def count(name: str, total: int) -> None:
+    """Count one launch of kernel `name` over `total` >= 1 elements."""
+    launches[name] += 1
+    launch_widths[name][1 << (total - 1).bit_length()] += 1
 
 
 def _nvcc() -> str:

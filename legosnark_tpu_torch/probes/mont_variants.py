@@ -183,7 +183,7 @@ def mont_mul_sos(spec: FieldSpec, a, b):
     err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[-1], total,
              ctypes.cast(_sos_words(spec.p), ctypes.c_void_p), _stream(a))
     kernels.check("mont_sos.cu", err, "mont_mul_sos")
-    kernels.launches["mont_mul_sos"] += 1
+    kernels.count("mont_mul_sos", total)
     return out
 
 
@@ -202,7 +202,7 @@ def mont_mul_tc(spec: FieldSpec, a, b):
     err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[-1], total,
              toep.data_ptr(), _stream(a))
     kernels.check("mont_tc.cu", err, "mont_mul_tc")
-    kernels.launches["mont_mul_tc"] += 1
+    kernels.count("mont_mul_tc", total)
     return out
 
 
@@ -222,7 +222,7 @@ def limb_product(a, b, variant: str):
     err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[-1], total,
              VARIANTS.index(variant), _stream(a))
     kernels.check("limb_product.cu", err, f"limb_product_{variant}")
-    kernels.launches[f"limb_product_{variant}"] += 1
+    kernels.count(f"limb_product_{variant}", total)
     return out
 
 

@@ -95,6 +95,33 @@ def test_g1_dispatch_equals_plain_on_cpu():
     assert tg.g1_to_ints(tg.G1.double(P)) == [oracle.g1_add(p, p) for p in pts]
 
 
+@pytest.mark.parametrize("times", [1, 4, 17])
+@pytest.mark.parametrize("curve", ["G1", "G2"])
+def test_double_times(curve, times):
+    """double(p, times=k) equals k single doublings limb for limb, and is
+    [2^k] p; times < 1 raises."""
+    C, mul, to_ints, from_ints, gen = {
+        "G1": (tg.G1, oracle.g1_mul, tg.g1_to_ints, tg.g1_from_ints, oracle.G1),
+        "G2": (tg.G2, oracle.g2_mul, tg.g2_to_ints, tg.g2_from_ints, oracle.G2),
+    }[curve]
+    pts = [mul(gen, 5), None]
+    P = from_ints(pts, "cpu")
+    want = P
+    for _ in range(times):
+        want = C.double(want)
+    got = C.double(P, times=times)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert to_ints(got) == [mul(gen, 5 << times), None]
+    if curve == "G1":
+        for g, w in zip(cuda_group.double_point(tuple(P), times), want):
+            assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="times"):
+        C.double(P, times=0)
+    with pytest.raises(ValueError, match="times"):
+        cuda_group.double_point(tuple(P), 0)
+
+
 def test_g2_add_double_match_jax():
     pts = [oracle.g2_mul(oracle.G2, k + 3) for k in range(3)]
     qs = [pts[1], None, pts[2]]

@@ -50,29 +50,53 @@ def test_k1_equals_plain(cuda, spec):
     assert torch.equal(got, cuda_limb.mont_mul_plain(spec, a[0], a[0][:, :1]))
 
 
-def test_k2_k3_equal_plain(cuda):
-    n = 1000
+def _g1_operands(cuda, n):
+    """Coordinates of n points k*G (k = 1..n) with the identity and two
+    off-curve points of edge coordinates (0 and 2q - 1) mixed in, and a
+    second operand that is P itself, -P, the identity or a neighbour."""
     table = msm.fixed_base_table(tg.G1, tg.g1_generator((), cuda), c=8)
     ks = fl.tensor(fl.ints_to_limbs(range(1, n + 1)), cuda)
     P = msm.batch_scalar_mul(tg.G1, table, ks, c=8)
+    lo, hi = (fl.tensor(fl.ints_to_limbs([v]), cuda)
+              for v in (0, 2 * bn254.Q - 1))
+    kind = torch.arange(n, device=cuda) % 7
+    P = tg.G1.select(kind == 4, tg.G1.identity((n,), cuda), P)
+    P = tg.G1.select(kind == 5, tg.Point(hi, lo, hi), P)
+    P = tg.G1.select(kind == 6, tg.Point(lo, hi, hi), P)
     sel = torch.arange(n, device=cuda) % 4
     Q = tg.Point(*(t.roll(1, -1) for t in P))
     Q = tg.G1.select(sel == 0, P, Q)
     Q = tg.G1.select(sel == 1, tg.G1.neg(P), Q)
     Q = tg.G1.select(sel == 2, tg.G1.identity((n,), cuda), Q)
-    p = tuple(t.contiguous() for t in P)
-    q = tuple(t.contiguous() for t in Q)
-    kernels.reset_launches()
-    s = cuda_group.add_points(p, q)
-    d = cuda_group.double_point(p)
-    torch.cuda.synchronize()
-    assert kernels.launches["g1_add"] == 1
-    assert kernels.launches["g1_double"] == 1
-    for got, want in zip(s, cuda_group.add_points_plain(p, q)):
-        assert torch.equal(got, want)
-    for got, want in zip(d, cuda_group.double_point_plain(p)):
-        assert torch.equal(got, want)
-    assert tg.g1_to_ints(tg.Point(*(t[:, 1:2] for t in s))) == [None]
+    return (tuple(t.contiguous() for t in P),
+            tuple(t.contiguous() for t in Q))
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 1 << 16])
+def test_k2_k3_equal_plain(cuda, n):
+    p, q = _g1_operands(cuda, n)
+    cases = [(p, q)]
+    if n % 2 == 0:   # a leading batch axis: [2, 8, n / 2]
+        cases.append(tuple(tuple(t.view(8, 2, n // 2).transpose(0, 1)
+                                 .contiguous() for t in x) for x in (p, q)))
+    for p, q in cases:
+        kernels.reset_launches()
+        s = cuda_group.add_points(p, q)
+        torch.cuda.synchronize()
+        assert kernels.launches == {"g1_add": 1}
+        for got, want in zip(s, cuda_group.add_points_plain(p, q)):
+            assert torch.equal(got, want)
+        if n >= 3 and s[0].dim() == 2:   # P + (-P) at index 1
+            assert tg.g1_to_ints(tg.Point(*(t[:, 1:2] for t in s))) == [None]
+        for times in (1, 4, 17):
+            kernels.reset_launches()
+            d = cuda_group.double_point(p, times)
+            torch.cuda.synchronize()
+            assert kernels.launches == {"g1_double": 1}
+            assert kernels.launch_widths["g1_double"] == {
+                1 << (n - 1).bit_length(): 1}
+            for got, want in zip(d, cuda_group.double_point_plain(p, times)):
+                assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("spec", [bn254.FR, bn254.FQ], ids=["Fr", "Fq"])
