@@ -28,12 +28,22 @@ Phases, each printing its result and times on its own line:
      e(G1, G2) equal to the CPU's;
   7. the Fiat-Shamir path at n = 1024 with phase 5's key and data: prove
      and verify true, a tampered proof false, with its launch counts and
-     their widths.
+     their widths;
+  8. the Hadamard example at n = 2^14 (`examples.hadamard.run(14)`):
+     CPhadL keygen, three commitments, prove, verify, then CPhad in the
+     Fiat-Shamir mode, each timed, with the kernels' launch counts and
+     widths; both checked without the port's arithmetic against keygen's
+     rebuilt trapdoors and host-int MLEs and Lagrange values (CPhad: the
+     commitments, t = c~(rho), the finals, the sumcheck chain closing on
+     beta(rho, r) a~(r) b~(r), every opening; CPhadL: c and pi as scalar
+     multiples of G1, the G2 legs well formed); tampers verify false
+     (CPhad: c != a o b re-proved, two round commitments swapped;
+     CPhadL: a proof for c != a o b).
 Then a `kernels` JSON line (with `ms_by_width` for K2 and K3), the
 `nvidia-smi` name and power limit line, and as the last line
 {"ok": true, "device": {...}}.
 
-Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7]   (phase 7 needs 5)
+Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8]   (phase 7 needs 5)
 Needs one CUDA card; exits non-zero without one, or when any check fails.
 """
 from __future__ import annotations
@@ -306,7 +316,7 @@ def _narrow_widths(dev, Pc, Qc, stats) -> None:
                 f"{dev_us:.2f} us/launch host {host_us:.2f} us/call")
 
 
-def phase_msm(torch, np, dev, n: int, c: int) -> float:
+def phase_msm(torch, np, dev, n: int, c: int) -> list:
     from legosnark_tpu_torch.curve import msm
     from legosnark_tpu_torch.curve.group import G1, g1_generator, g1_to_ints
     from legosnark_tpu_torch.fields import limb as fl
@@ -320,14 +330,17 @@ def phase_msm(torch, np, dev, n: int, c: int) -> float:
     table = msm.fixed_base_table(G1, g1_generator((), dev), c=8)
     pts = msm.batch_scalar_mul(G1, table, fl.tensor(k_np, dev), c=8)
     scalars = fl.tensor(s_np, dev)
-    _sync(torch, dev)
-    t0 = time.perf_counter()
-    out = msm.msm(G1, pts, scalars, c=c)
-    _sync(torch, dev)
-    ms = (time.perf_counter() - t0) * 1e3
-    check(g1_to_ints(out)[0] == aff_mul(G, e), "MSM trapdoor check")
+    want = aff_mul(G, e)
+    ms = []
+    for _ in range(3):          # the first call in the process, then warm
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = msm.msm(G1, pts, scalars, c=c)
+        _sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(g1_to_ints(out)[0] == want, "MSM trapdoor check")
     log(f"# phase 3 ok: MSM n={n} c={c} signed, trapdoor check passed, "
-        f"{ms:.1f} ms")
+        f"{ms[0]:.1f} ms first call, {ms[1]:.1f} / {ms[2]:.1f} ms after")
     return ms
 
 
@@ -702,6 +715,193 @@ def phase_fs(torch, dev, kernels, res) -> dict:
     return {"launches": launches, "prove_s": prove_s, "verify_s": verify_s}
 
 
+def phase_hadamard(torch, np, dev, d: int, kernels) -> dict:
+    """The Hadamard example at n = 2^d, its host-int checks and tampers."""
+    from legosnark_tpu_torch.examples import hadamard as had_example
+
+    _sync(torch, dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = had_example.run(d, device=dev)
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    log(f"# phase 8 Hadamard n={1 << d}: launches {json.dumps(launches)} "
+        f"times {json.dumps({k: round(v, 3) for k, v in res['times'].items()})}"
+        f" total {total_s:.1f}s")
+    log(f"# phase 8 launch widths: {json.dumps(_widths(kernels))}")
+    check(res["lipmaa"]["ok"], "CPhadL proof at n=2^14 verifies")
+    check(res["hadsc"]["ok"], "CPhad Fiat-Shamir proof at n=2^14 verifies")
+    for name in MAIN_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} launched on the "
+              f"Hadamard path")
+    _cphad_host_checks(np, d, res["hadsc"])
+    _cphadl_host_checks(np, d, res["lipmaa"])
+    _hadamard_tampers(torch, dev, res)
+    log("# phase 8 ok: CPhadL and CPhad (Fiat-Shamir) at n=2^14 verify, "
+        "agree with host ints and rebuilt trapdoors, and reject tampers")
+    return {"launches": launches, "times": res["times"], "total_s": total_s}
+
+
+def _ints(v):
+    from legosnark_tpu_torch.convert import to_ints
+    return [int(x) for x in to_ints(v).reshape(-1)]
+
+
+def _cphad_host_checks(np, d: int, had) -> None:
+    """CPhad's commitments and proof from host ints: u drawn again from
+    the example's seed, PST13's s and alpha from keygen's."""
+    from legosnark_tpu_torch.curve.group import Point, g1_to_ints
+    from legosnark_tpu_torch.utils import rand as lrand
+
+    t0 = time.perf_counter()
+    n = 1 << d
+    u = lrand.rand_fr_ints(np.random.default_rng(31 + d), n)
+    vals = {"u": u, "u^2": [x * x % R for x in u]}
+    rng = np.random.default_rng(d ^ 0x9057)
+    s_key, alpha = lrand.rand_fr_ints(rng, d), lrand.rand_fr_int(rng)
+    pf = had["proof"]
+    sc = pf.sc_proof
+    rho, r = _ints(pf.rho), _ints(sc.r)
+    comms = dict(zip(vals, had["comms"]))
+    for name, v in vals.items():
+        c = g1_to_ints(comms[name].c)[0]
+        check(c == aff_mul(G, mle_fold(v, s_key)[0]), f"C_{name} = {name}~(s) G")
+        check(g1_to_ints(comms[name].ca)[0] == aff_mul(c, alpha),
+              f"Ca_{name} = alpha C_{name}")
+    t = mle_fold(vals["u^2"], rho)[0]
+    t_comm = g1_to_ints(pf.t_ans_comm)[0]
+    check(t_comm == aff_mul(G, t), "t_ans_comm = c~(rho) G")
+    fin = mle_fold(u, r)[0]
+    check(_ints(sc.finals) == [fin, fin], "finals = a~(r), b~(r)")
+    k1 = sc.h_comms.x.shape[-1]
+    check(k1 == 4, "degree-3 rounds")
+    hc = g1_to_ints(Point(*(x.movedim(0, -2).reshape(8, -1)
+                            for x in sc.h_comms)))
+    claim = t_comm
+    for i in range(d):
+        cs = hc[i * k1 : (i + 1) * k1]
+        at01 = cs[0]
+        for cj in cs:
+            at01 = aff_add(at01, cj)
+        check(at01 == claim, f"CPhad round {i}: h(0) + h(1) = claim")
+        claim = None
+        for j, cj in enumerate(cs):
+            claim = aff_add(claim, aff_mul(cj, pow(r[i], j, R)))
+    beta = 1
+    for x, y in zip(rho, r):
+        beta = beta * (x * y + (1 - x) * (1 - y)) % R
+    check(claim == aff_mul(G, beta * fin * fin),
+          "last round closes on beta(rho, r) a~(r) b~(r)")
+    for name, cm, pt, ppf, ans in (
+            ("c at rho", comms["u^2"], rho, pf.c_poly_pf, t),
+            ("a at r", comms["u"], r, sc.poly_pfs[0], fin),
+            ("b at r", comms["u"], r, sc.poly_pfs[1], fin)):
+        w, wa = g1_to_ints(ppf.witness), g1_to_ints(ppf.witnessa)
+        rhs = None
+        for j in range(d):
+            rhs = aff_add(rhs, aff_mul(w[j], s_key[j] - pt[j]))
+            check(wa[j] == aff_mul(w[j], alpha), f"{name}: Wa_{j} = alpha W_{j}")
+        lhs = aff_add(g1_to_ints(cm.c)[0], aff_neg(aff_mul(G, ans)))
+        check(lhs == rhs, f"opening {name}: C - ans G = sum (s_j - pt_j) W_j")
+    log(f"# phase 8 CPhad: commitments, t_ans_comm, finals, the degree-3 "
+        f"sumcheck chain and three openings agree with host ints and "
+        f"rebuilt s, alpha ({time.perf_counter() - t0:.1f}s)")
+
+
+def _cphadl_host_checks(np, d: int, lip) -> None:
+    """CPhadL's commitments and pi as scalar multiples of G1, the scalars
+    from host ints and keygen's rebuilt chi; the G2 legs by their
+    well-formedness equation."""
+    from legosnark_tpu_torch.curve import pairing as pr
+    from legosnark_tpu_torch.curve.bn254 import fr_two_adic_root
+    from legosnark_tpu_torch.curve.group import g1_to_ints
+    from legosnark_tpu_torch.gadgets import lipmaa
+    from legosnark_tpu_torch.utils import rand as lrand
+
+    t0 = time.perf_counter()
+    n = 1 << d
+    rng = np.random.default_rng(41 + d)
+    u = lrand.rand_fr_ints(rng, n)
+    ds = lrand.rand_fr_ints(rng, 3)
+    check(_ints(lip["ds"]) == ds, "the commitments' r drawn again")
+    rng = np.random.default_rng(d ^ 0x11BA)
+    chi = lrand.rand_fr_int(rng)
+    w = fr_two_adic_root(d)
+    z = (pow(chi, n, R) - 1) % R
+    lag, wi = [], 1
+    for _ in range(n):
+        lag.append(z * wi * pow(n * (chi - wi), -1, R) % R)
+        wi = wi * w % R
+    scal = [(sum(x * y for x, y in zip(v, lag)) + r_ * z) % R
+            for v, r_ in zip((u, u, [x * x % R for x in u]), ds)]
+    for i, cm in enumerate(lip["comms"]):
+        check(g1_to_ints(cm.c)[0] == aff_mul(G, scal[i]),
+              f"commitment {i}: c = (sum v_i l_i(chi) + r Z(chi)) G1")
+    h = (scal[0] * scal[1] - scal[2]) * pow(z, -1, R) % R
+    check(g1_to_ints(lip["pi"])[0] == aff_mul(G, h),
+          "pi = H(chi) G1, H = (A B - C) / Z")
+    ik = lip["key"].interp
+    ok = pr.pairing_checks([g for cm in lip["comms"]
+                            for g in lipmaa.commit_pairings(ik, cm)])
+    check(bool(ok.all()), "e(c, gamma Z G2) = e(Z G1, kc) for all three")
+    log(f"# phase 8 CPhadL: c and pi equal host-int scalars times G1 (rebuilt "
+        f"chi, 2^{d} Lagrange values), G2 legs well formed "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+
+def _hadamard_tampers(torch, dev, res) -> None:
+    from legosnark_tpu_torch.curve import bn254
+    from legosnark_tpu_torch.curve.group import Point
+    from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.gadgets import hadamard as cphad
+    from legosnark_tpu_torch.gadgets import lipmaa
+
+    one = fl.one(bn254.FR, (), dev)
+
+    def off_by_one(v):
+        v = v.clone()
+        v[:, :1] = fl.add(bn254.FR, v[:, :1], one)
+        return v
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        ok = bool(fn())
+        log(f"# phase 8 tamper '{what}': verify {ok} "
+            f"({time.perf_counter() - t0:.2f}s)")
+        check(not ok, f"tampered proof ({what}) verifies false")
+
+    had = res["hadsc"]
+    key, u, (a_cm, _) = had["key"], had["u"], had["comms"]
+    sq_bad = off_by_one(had["sq"])
+
+    def wrong_product():
+        c_cm = cphad.commit_vec(key, sq_bad)
+        pf = cphad.prove_fs(key, u, u, sq_bad, a_cm, a_cm, c_cm,
+                            had["nonces"])
+        return cphad.verify_fs(key, a_cm, a_cm, c_cm, pf)
+
+    timed("CPhad c != a o b, re-committed and re-proved", wrong_product)
+    pf = had["proof"]
+    sc = pf.sc_proof
+    order = [1, 0] + list(range(2, sc.h_comms.x.shape[0]))
+    bad = pf._replace(sc_proof=sc._replace(
+        h_comms=Point(*(t[order] for t in sc.h_comms))))
+    timed("CPhad round commitments 0 and 1 swapped",
+          lambda: cphad.verify_fs(key, a_cm, a_cm, had["comms"][1], bad))
+
+    lip = res["lipmaa"]
+    lkey, ds = lip["key"], lip["ds"]
+    sq_bad = off_by_one(lip["sq"])
+
+    def lipmaa_wrong_product():
+        ca, cb, _ = lip["comms"]
+        cc = lipmaa.commit(lkey.interp, sq_bad, ds[..., 2:3])
+        pi = lipmaa.prove(lkey, lip["u"], lip["u"], sq_bad, ds)
+        return lipmaa.verify(lkey, ca, cb, cc, pi)
+
+    timed("CPhadL proof for c != a o b", lipmaa_wrong_product)
+
+
 #: name -> (source, the TPU kernel it replaces, on the main path?)
 KERNELS = {
     "mont_mul": ("legosnark_tpu_torch/csrc/mont_mul.cu",
@@ -724,7 +924,7 @@ KERNELS = {
 
 
 def main(argv) -> int:
-    phases = {1, 2, 3, 4, 5, 6, 7}
+    phases = {1, 2, 3, 4, 5, 6, 7, 8}
     if "--phases" in argv:
         phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
     if 7 in phases and 5 not in phases:
@@ -758,8 +958,10 @@ def main(argv) -> int:
     if 6 in phases:
         stats.update(phase_probes(torch, np, dev))
     fs = phase_fs(torch, dev, kernels, hv["res"]) if 7 in phases else None
+    had = phase_hadamard(torch, np, dev, 14, kernels) if 8 in phases else None
     paths = {"cpmmp_hv_1024": hv["launches"] if hv else {},
-             "cpmmp_fs_1024": fs["launches"] if fs else {}}
+             "cpmmp_fs_1024": fs["launches"] if fs else {},
+             "hadamard_2e14": had["launches"] if had else {}}
     rows = []
     for name, (src, tpu, on_path) in KERNELS.items():
         st = stats.get(name, {})
@@ -783,6 +985,9 @@ def main(argv) -> int:
     if fs:
         summary.update({"fs_prove_s": round(fs["prove_s"], 3),
                         "fs_verify_s": round(fs["verify_s"], 3)})
+    if had:
+        summary.update({"hadamard_2e14": {k: round(v, 3)
+                                          for k, v in had["times"].items()}})
     log(f"# all phases {sorted(phases)} passed: {json.dumps(summary)}")
     print(json.dumps({"kernels": rows}))
     print(start["smi"])

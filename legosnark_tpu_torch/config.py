@@ -22,7 +22,12 @@ def resolve_device(device=None) -> torch.device:
 def default_window(n: int) -> int:
     """Pippenger window c (bits) for an n-point MSM. The port always
     recodes digits as signed (curve/msm.py), which halves the bucket range,
-    so c = 17 above 2^17 always runs with signed digits."""
+    so c = 17 above 2^17 always runs with signed digits. Up to 16 points,
+    c = 4 keeps the 2^(c-1) bucket boundaries per window near n (the
+    plain path's cost on the CPU) for 32 more Horner steps (launches on
+    the card)."""
+    if n <= 16:
+        return 4
     if n <= (1 << 10):
         return 8
     if n <= (1 << 16):

@@ -77,36 +77,72 @@ def polycomm_from_jax(cm, device):
     return PolyComm(point_from_jax(cm.c, device), point_from_jax(cm.ca, device))
 
 
-def matproof_from_jax(pf, device):
-    """A JAX `MatProof` (with its `SumcheckProof`, CPpoly and sigma
-    proofs) -> the port's. Field values become port Montgomery limbs of
-    the same elements, points port points of the same group elements."""
-    from .gadgets import matrix, poly, sigma, sumcheck
+def _fr(x, device):
+    return fl.tensor(field_from_jax(x, bn254.FR), device)
 
-    def fr(x):
-        return fl.tensor(field_from_jax(x, bn254.FR), device)
 
-    def ppf(p):
-        return poly.PolyPf(point_from_jax(p.witness, device),
-                           point_from_jax(p.witnessa, device))
+def _polypf_from_jax(p, device):
+    from .gadgets.poly import PolyPf
+    return PolyPf(point_from_jax(p.witness, device),
+                  point_from_jax(p.witnessa, device))
 
-    sc = pf.sc_proof
+
+def scproof_from_jax(sc, device):
+    """A JAX `SumcheckProof` (with its CPpoly and sigma proofs) -> the
+    port's."""
+    from .gadgets import sigma, sumcheck
+
     prd = sc.prd_proof
-    sc_t = sumcheck.SumcheckProof(
-        r=fr(sc.r), h_comms=point_from_jax(sc.h_comms, device),
+    return sumcheck.SumcheckProof(
+        r=_fr(sc.r, device), h_comms=point_from_jax(sc.h_comms, device),
         eq_proofs=sigma.ZKEqProof(point_from_jax(sc.eq_proofs.a, device),
-                                  fr(sc.eq_proofs.z)),
+                                  _fr(sc.eq_proofs.z, device)),
         ans_comms=point_from_jax(sc.ans_comms, device),
-        poly_pfs=tuple(ppf(p) for p in sc.poly_pfs),
+        poly_pfs=tuple(_polypf_from_jax(p, device) for p in sc.poly_pfs),
         prd_proof=sigma.ZKPrdProof(
             *(point_from_jax(getattr(prd, f), device)
               for f in ("alpha", "beta", "delta")),
-            *(fr(getattr(prd, f)) for f in ("z1", "z2", "z3", "z4", "z5"))),
-        finals=fr(sc.finals))
+            *(_fr(getattr(prd, f), device)
+              for f in ("z1", "z2", "z3", "z4", "z5"))),
+        finals=_fr(sc.finals, device))
+
+
+def matproof_from_jax(pf, device):
+    """A JAX `MatProof` -> the port's. Field values become port Montgomery
+    limbs of the same elements, points port points of the same group
+    elements."""
+    from .gadgets import matrix
     return matrix.MatProof(
-        r=fr(pf.r), s=fr(pf.s), t_comm=point_from_jax(pf.t_comm, device),
-        sc_proof=sc_t, c_ans_comm=point_from_jax(pf.c_ans_comm, device),
-        c_poly_pf=None if pf.c_poly_pf is None else ppf(pf.c_poly_pf))
+        r=_fr(pf.r, device), s=_fr(pf.s, device),
+        t_comm=point_from_jax(pf.t_comm, device),
+        sc_proof=scproof_from_jax(pf.sc_proof, device),
+        c_ans_comm=point_from_jax(pf.c_ans_comm, device),
+        c_poly_pf=None if pf.c_poly_pf is None
+        else _polypf_from_jax(pf.c_poly_pf, device))
+
+
+def hadkey_from_jax(key, device):
+    """A JAX `HadKey` -> the port's."""
+    from .gadgets.hadamard import HadKey
+    return HadKey(key.n, key.d, polykey_from_jax(key.poly_key, device))
+
+
+def hadproof_from_jax(pf, device):
+    """A JAX `HadProof` -> the port's."""
+    from .gadgets.hadamard import HadProof
+    return HadProof(rho=_fr(pf.rho, device),
+                    t_ans_comm=point_from_jax(pf.t_ans_comm, device),
+                    c_poly_pf=_polypf_from_jax(pf.c_poly_pf, device),
+                    sc_proof=scproof_from_jax(pf.sc_proof, device))
+
+
+def hadlkey_from_jax(key, device):
+    """A JAX `HadLKey` (CPhadL) -> the port's."""
+    from .gadgets.lipmaa import HadLKey, InterpKey
+    ik = key.interp
+    return HadLKey(key.n, point_from_jax(key.chi_pows, device), InterpKey(
+        ik.n, *(point_from_jax(getattr(ik, f), device)
+                for f in ("lag_g1", "lag_kg2", "z_g1", "z_kg2"))))
 
 
 def to_ints(x, spec: FieldSpec = bn254.FR, g2: bool = False):

@@ -1,10 +1,12 @@
 """BN254 (alt_bn128) curve constants as plain Python integers.
 
-Counterpart of `legosnark_tpu/curve/bn254.py:18-46`, copied as ints so
+Counterpart of `legosnark_tpu/curve/bn254.py:18-46, 78-125`, copied as ints so
 that this package imports nothing of the JAX package. The field specs
 describe the port's limb layout: 8 x 32-bit limbs, R = 2^256.
 """
 from __future__ import annotations
+
+import functools
 
 from ..fields.limb import FieldSpec
 
@@ -71,3 +73,47 @@ B3_G2 = (3 * B_G2[0] % Q, 3 * B_G2[1] % Q)
 
 FQ = FieldSpec(p=Q, name="Fq")
 FR = FieldSpec(p=R, name="Fr")
+
+
+def _two_adicity() -> int:
+    t, s = R - 1, 0
+    while t % 2 == 0:
+        t //= 2
+        s += 1
+    return s
+
+
+@functools.lru_cache(None)
+def fr_two_adic_root(log_n: int) -> int:
+    """A primitive 2^log_n-th root of unity in Fr (`legosnark_tpu/curve/
+    bn254.py:fr_two_adic_root`): the same element, so NTTs agree."""
+    s = _two_adicity()
+    if log_n > s:
+        raise ValueError(f"domain 2^{log_n} exceeds 2-adicity {s}")
+    g = 2
+    while True:   # the smallest g whose power has order exactly 2^s
+        cand = pow(g, (R - 1) >> s, R)
+        if pow(cand, 1 << (s - 1), R) != 1:
+            break
+        g += 1
+    return pow(cand, 1 << (s - log_n), R)
+
+
+#: the prime factors of r - 1
+_FR_ORDER_FACTORS = (2, 3, 13, 29, 983, 11003, 237073, 405928799,
+                     1670836401704629, 13818364434197438864469338081)
+
+
+@functools.lru_cache(None)
+def fr_multiplicative_generator() -> int:
+    """The smallest generator of Fr^*, the NTT's coset shift
+    (`legosnark_tpu/curve/bn254.py:fr_multiplicative_generator`)."""
+    rest = R - 1
+    for f in _FR_ORDER_FACTORS:
+        while rest % f == 0:
+            rest //= f
+    assert rest == 1, "factorization of r - 1 incomplete"
+    g = 2
+    while any(pow(g, (R - 1) // f, R) == 1 for f in _FR_ORDER_FACTORS):
+        g += 1
+    return g

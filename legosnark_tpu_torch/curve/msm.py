@@ -19,6 +19,7 @@ Every add and double of a G1 MSM runs in kernels K2/K3.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..fields import limb as fl
@@ -26,10 +27,18 @@ from . import bn254
 from .group import CurveOps, Point, point_concat, point_map, scan
 
 
-def point_index(p: Point, idx) -> Point:
-    """One gather per window along the vector (last) axis: idx [W, m]
-    turns coordinates [.., n] into [W, .., m]."""
-    return point_map(lambda t: torch.movedim(t[..., idx], -2, 0), p)
+def point_index(C: CurveOps, p: Point, idx, lead) -> Point:
+    """One gather per window along the vector (last) axis: idx [W, L.., m]
+    (L broadcasting against the batch shape `lead`) turns coordinates
+    [B.., E.., n] into [W, lead.., E.., m]."""
+    edims = C.F.ndim - 1
+
+    def take(t):
+        src = t.expand(lead + t.shape[t.dim() - edims - 1:])
+        src = src[None].expand((idx.shape[0],) + src.shape)
+        i = idx.view(idx.shape[:-1] + (1,) * edims + idx.shape[-1:])
+        return torch.gather(src, -1, i.expand(src.shape[:-1] + i.shape[-1:]))
+    return point_map(take, p)
 
 
 def _all_digits(spec: fl.FieldSpec, scalars, c: int, W: int):
@@ -56,12 +65,14 @@ def _signed_digits(digits, c: int):
 
 def msm(C: CurveOps, points: Point, scalars, c: int | None = None,
         fr_spec: fl.FieldSpec = bn254.FR) -> Point:
-    """sum_i scalars_i * points_i for canonical Fr scalars [8, n].
+    """sum_i scalars_i * points_i for canonical Fr scalars [S.., 8, n].
 
     points: a batch [B.., E.., n] (E the element axes: limbs for G1,
-    tower and limbs for G2); every leading batch row B takes the same
-    scalars, so several MSMs over shared scalars run as one. Returns
-    coordinates [B.., E.., 1]."""
+    tower and limbs for G2). The batch axes B and S broadcast against
+    each other, so several MSMs run as one: over shared scalars (S
+    empty), over shared points (B empty), or both. Every row runs the
+    group operations it would run alone. Returns coordinates
+    [lead.., E.., 1], lead the broadcast of B and S."""
     if c is None:
         from ..config import default_window
         c = default_window(scalars.shape[-1])
@@ -69,35 +80,40 @@ def msm(C: CurveOps, points: Point, scalars, c: int | None = None,
         raise ValueError(f"window {c} outside [1, 31]")
     n = scalars.shape[-1]
     dev = scalars.device
-    lead = C.F.batch_shape(points.x)[:-1]
+    # numpy's broadcast: torch.broadcast_shapes imports sympy at its first
+    # call (seconds on the card's host, inside the first MSM's time)
+    lead = tuple(np.broadcast_shapes(tuple(C.F.batch_shape(points.x)[:-1]),
+                                     tuple(scalars.shape[:-2])))
     if n == 0:
         return C.identity(lead + (1,), dev)
     W = -(-(fr_spec.bits + 1) // c)
     mags, negs = _signed_digits(_all_digits(fr_spec, scalars, c, W), c)
     T = 1 << (c - 1)
+    edims = C.F.ndim - 1
 
     def rows(m):
-        """[W, m] per-window values against [W, B.., m] batches."""
-        return m.view((W,) + (1,) * len(lead) + m.shape[-1:])
+        """[W, S.., m] per-window values against [W, lead.., m] batches."""
+        return m.view((W,) + (1,) * (len(lead) + 2 - m.dim()) + m.shape[1:])
 
-    smag, order = torch.sort(mags, dim=-1)                  # [W, n]
-    ps = point_index(points, order)                         # [W, B.., E.., n]
+    smag, order = torch.sort(mags, dim=-1)                  # [W, S.., n]
+    ps = point_index(C, points, rows(order), lead)          # [W, lead.., E.., n]
     ps = C.select(rows(torch.gather(negs, -1, order)), C.neg(ps), ps)
     suf = Point(*scan(lambda a, b: C.add(Point(*a), Point(*b)), ps,
                       reverse=True))
 
     # bucket boundaries: first sorted position with mag >= t, t = 1..T
     t = torch.arange(1, T + 1, dtype=smag.dtype, device=dev)
-    idx = torch.searchsorted(smag, t.expand(W, T).contiguous())
-    ix = idx.clamp(max=n - 1)
+    idx = torch.searchsorted(smag, t.expand(smag.shape[:-1] + (T,))
+                             .contiguous())                 # [W, S.., T]
+    ix = rows(idx.clamp(max=n - 1))
 
     def gather(a):
-        g = ix.view((W,) + (1,) * (a.dim() - 2) + (T,))
+        g = ix.view(ix.shape[:-1] + (1,) * edims + (T,))
         return torch.gather(a, -1, g.expand(a.shape[:-1] + (T,)))
 
     bnd = C.select(rows(idx < n), point_map(gather, suf),
                    C.identity((W,) + lead + (T,), dev))
-    S = C.sum_reduce(bnd)                                   # [W, B.., E.., 1]
+    S = C.sum_reduce(bnd)                                   # [W, lead.., E.., 1]
 
     # Horner from the most significant window down
     acc = point_map(lambda a: a[W - 1], S)

@@ -92,7 +92,7 @@ def prove_output_in_clear(key: MatKey, A_mont, B_mont, C_mont, r_mont,
     holds 'eq_e' and 'prd_e'; Fiat-Shamir mode: a `transcript` instead."""
     ta = mle.matrix_mle_fold(A_mont, mle.mk_beta(r_mont))
     tb = mle.matrix_mle_fold(_transpose(B_mont), mle.mk_beta(s_mont))
-    sc_pf, _, t_comm = cpsc.prove(
+    sc_pf, _, t_comm, _ = cpsc.prove(
         key.poly_key, torch.stack([ta, tb]), {**nonces, **(hv_rand or {})},
         _open_points_fn(r_mont, s_mont),
         (flatten_matrix(A_mont), flatten_matrix(B_mont)),

@@ -110,8 +110,13 @@ def keygen(d: int, seed: int = 0, device=None) -> PolyKey:
 
 def _pair_msm(bases: Point, bases_a: Point, scalars_can):
     """The two legs <bases, v> and <bases_a, v> over shared scalars, run
-    as one MSM over the stacked bases."""
-    out = msm_mod.msm(G1, point_stack([bases, bases_a]), scalars_can)
+    as one MSM over the stacked bases; scalars [K.., 8, m] give legs
+    [K.., 8, 1]."""
+    lead = scalars_can.shape[:-2]
+    both = point_map(lambda t: t.view(t.shape[:1] + (1,) * len(lead)
+                                      + t.shape[1:]),
+                     point_stack([bases, bases_a]))
+    out = msm_mod.msm(G1, both, scalars_can)
     return point_map(lambda a: a[0], out), point_map(lambda a: a[1], out)
 
 
@@ -128,7 +133,9 @@ def compute_answer(key: PolyKey, v_mont, r_mont):
 
 
 def prove(key: PolyKey, v_mont, r_mont) -> PolyPf:
-    """d quotient witnesses by successive folding."""
+    """d quotient witnesses by successive folding. Tables [K.., 8, 2^d]
+    and points [K.., 8, d] open K tables at K points with one MSM per
+    round, giving witnesses [K.., 8, d] (`unstack` splits them)."""
     ws, was = [], []
     v = v_mont
     for i in range(poly_d(key)):
@@ -139,6 +146,12 @@ def prove(key: PolyKey, v_mont, r_mont) -> PolyPf:
         was.append(wa)
         v = mle.fold(v, r_mont[..., i : i + 1])
     return PolyPf(point_concat(ws), point_concat(was))
+
+
+def unstack(pf: PolyPf) -> list:
+    """The proofs of a stacked `prove` [K, 8, d], one per table."""
+    return [PolyPf(*(point_map(lambda x, i=i: x[i], p) for p in pf))
+            for i in range(pf.witness.x.shape[0])]
 
 
 def keygen_cached(d: int, seed: int = 0, cache_dir=None,

@@ -1,4 +1,4 @@
-"""CPsc - commit-and-prove sumcheck, matrix mode (beta == 1).
+"""CPsc - commit-and-prove sumcheck.
 
 Counterpart of `legosnark_tpu/gadgets/sumcheck.py:53-197, 268-350,
 410-414`:
@@ -7,10 +7,15 @@ Counterpart of `legosnark_tpu/gadgets/sumcheck.py:53-197, 268-350,
           each committed coefficient-wise; per-round ZKEq proofs that
           h_i(0) + h_i(1) equals the running claim; CPpoly openings of
           the committed MLEs at the round challenges; one ZKPrd proof
-          that z_d = a~(r) * b~(r).
+          that z_d = beta(rho, r) * a~(r) * b~(r).
   verifier: replays the round checks on the commitments
           (`polytools.eval_as_poly_on`), checks the CPpoly openings and
           the product proof.
+
+Two shapes. Matrix mode (CPmmp) proves sum_p a[p] * b[p] (beta == 1);
+with a weight table beta = eq(rho, .) (`beta_table`, CPhad) the rounds
+have degree 3 and the verifier evaluates beta(rho, r) in closed form
+(`beta_point_fn`).
 
 Two modes. Honest-verifier: the challenges are given (`challenges`,
 `rand['eq_e']`, `rand['prd_e']`). Fiat-Shamir: a `Transcript` absorbs
@@ -48,14 +53,25 @@ class SumcheckProof(NamedTuple):
     finals: Any            # [8, 2] final answers (mont)
 
 
+def proof_size_group_elements(d: int, k: int) -> dict:
+    """Proof size of d rounds of degree k (`SumcheckPf::getSize`): the
+    h coefficient commitments, the ZKEq first moves and the two answer
+    commitments, the ZKPrd first moves and two CPpoly proofs in G1; the
+    ZKEq and ZKPrd responses and the finals in Fr."""
+    return {"g1": d * (k + 1) + d + 2 + 3 + 2 * 2 * d, "g2": 0,
+            "fr": d + 5 + 2}
+
+
 def commit_scalar(g: Point, v_mont) -> Point:
     """Deterministic scalar commitment v*G, batched: v [8, m] -> [8, m]."""
     return G1.scalar_mul(g, fl.from_mont(FR, v_mont))
 
 
 def prove(key: cppoly.PolyKey, tables, rand, open_points_fn, open_tables,
-          challenges=None, transcript=None):
-    """Sumcheck prove over the product of the stacked `tables` [2, 8, 2^d].
+          challenges=None, transcript=None, beta_table=None,
+          extra_openings=()):
+    """Sumcheck prove over the product of the stacked `tables` [2, 8, 2^d],
+    times `beta_table` [8, 2^d] when one is given.
 
     rand: prover nonces 'eq_k' [8, d] and 'prd_b' [8, 5], and in
         honest-verifier mode the challenges 'eq_e' [8, d] and 'prd_e'
@@ -64,13 +80,17 @@ def prove(key: cppoly.PolyKey, tables, rand, open_points_fn, open_tables,
         with a `transcript` (Fiat-Shamir mode).
     open_points_fn: maps the [8, d] round challenges to the points where
         CPpoly opens `open_tables`, one per table.
-    Returns (proof, z0, z0_comm): the claimed sum (mont [8, 1]) and its
-    commitment z0*G."""
+    extra_openings: (table, point) pairs of further CPpoly openings of
+        the same size, proved with the sumcheck's own (one MSM per round
+        for all of them).
+    Returns (proof, z0, z0_comm, extra_pfs): the claimed sum (mont
+    [8, 1]), its commitment z0*G and the PolyPf of each extra opening."""
     if (challenges is None) == (transcript is None):
         raise ValueError("give either challenges or a transcript")
     d = tables.shape[-1].bit_length() - 1
     dev = tables.device
-    full = tables
+    full = tables if beta_table is None else torch.cat(
+        [beta_table[None], tables])
     g, h = key.g1, _blinding(key)
 
     hs, hcs, rs = [], [], []
@@ -120,27 +140,32 @@ def prove(key: cppoly.PolyKey, tables, rand, open_points_fn, open_tables,
     eq_pfs = sigma.ZKEqProof(
         a=a_eq, z=FR_OPS.add(rand["eq_k"],
                              FR_OPS.mul(eq_e, FR_OPS.zero((d,), dev))))
-    pfs = [cppoly.prove(key, t, pt) for t, pt in zip(open_tables, points)]
+    opened = list(zip(open_tables, points)) + list(extra_openings)
+    pfs = cppoly.unstack(cppoly.prove(
+        key, torch.stack([t for t, _ in opened]),
+        torch.stack([pt for _, pt in opened])))
 
-    # final product proof: z_d = a~(r) * b~(r)
+    # final product proof: z_d = (beta(rho, r) * a~(r)) * b~(r), the
+    # folded weight table's value standing for beta(rho, r)
+    lhs = ans[0] if beta_table is None else fl.mont_mul(FR, full[0], ans[0])
     if transcript is not None:
         transcript.absorb_point(ans_comms)
         transcript.absorb_point(point_concat(moves))
         prd_e = transcript.challenge()
     else:
         prd_e = rand["prd_e"]
-    prd = sigma.zkprd_prove(ans[0], zero, ans[1], zero, zero, nb, prd_e,
-                            moves)
+    prd = sigma.zkprd_prove(lhs, zero, ans[1], zero, zero, nb, prd_e, moves)
 
+    k = len(open_tables)
     proof = SumcheckProof(
         r=r_stack, h_comms=h_comms, eq_proofs=eq_pfs, ans_comms=ans_comms,
-        poly_pfs=tuple(pfs), prd_proof=prd, finals=torch.cat(ans, dim=-1))
-    return proof, z0, z0_comm
+        poly_pfs=tuple(pfs[:k]), prd_proof=prd, finals=torch.cat(ans, dim=-1))
+    return proof, z0, z0_comm, pfs[k:]
 
 
 def verify(key: cppoly.PolyKey, z0_comm: Point, mle_comms, proof,
            open_points_fn, rand=None, transcript=None, z0_mont=None,
-           extra_openings=()):
+           extra_openings=(), beta_point_fn=None):
     """Sumcheck verify -> bool [] (on the proof's device).
 
     z0_comm: commitment to the claimed sum; with `z0_mont` (a claim the
@@ -150,6 +175,9 @@ def verify(key: cppoly.PolyKey, z0_comm: Point, mle_comms, proof,
     `transcript`, from which every challenge is recomputed.
     extra_openings: (PolyComm, answer commitment, point, PolyPf) of
     further CPpoly openings to check with the sumcheck's own.
+    beta_point_fn: r [8, d] -> beta(rho, r) [8, 1] for a proof made with
+    a `beta_table`; the product proof is then checked against
+    beta(rho, r) * ans_a.
 
     The proof carries its answers in the clear (`finals`); they must be
     the values its answer commitments commit to.
@@ -197,14 +225,20 @@ def verify(key: cppoly.PolyKey, z0_comm: Point, mle_comms, proof,
     terms = [(point_map(lambda x: x[:, None], hcomms),
               polytools.powers_of(at, k1)), (g, proof.finals)]
     terms += [(pf.witness, pt) for _, _, pt, pf in openings]
+    ans_a = point_map(lambda x: x[..., 0:1], proof.ans_comms)
+    ans_b = point_map(lambda x: x[..., 1:2], proof.ans_comms)
+    if beta_point_fn is not None:
+        terms.append((ans_a, beta_point_fn(r_stack)))
     if z0_mont is not None:
         terms.append((g, z0_mont))
     prods = sigma.smul_many(terms)
     ev = G1.sum_reduce(prods[0])
     checks = [G1.eq(prods[1], proof.ans_comms).all()]
     rws = [G1.sum_reduce(p) for p in prods[2 : 2 + len(openings)]]
+    rest = prods[2 + len(openings):]
+    lhs_comm = ans_a if beta_point_fn is None else rest.pop(0)
     if z0_mont is not None:
-        checks.append(G1.eq(prods[-1], z0_comm).all())
+        checks.append(G1.eq(rest.pop(0), z0_comm).all())
     if not bool(torch.stack(checks).all()):
         return torch.zeros((), dtype=torch.bool, device=dev)
 
@@ -217,11 +251,9 @@ def verify(key: cppoly.PolyKey, z0_comm: Point, mle_comms, proof,
     at_r = rounds(point_map(lambda x: x[:, 2], ev))
     claims = point_concat([z0_comm, point_map(lambda x: x[..., :-1], at_r)])
     z_comm = point_map(lambda x: x[..., -1:], at_r)
-    ans_a = point_map(lambda x: x[..., 0:1], proof.ans_comms)
-    ans_b = point_map(lambda x: x[..., 1:2], proof.ans_comms)
     eq_ok = sigma.zkeq_verify(h, v_comm, claims, proof.eq_proofs, eq_e)
-    prd_ok = sigma.zkprd_verify(g, h, ans_a, ans_b, z_comm, proof.prd_proof,
-                                prd_e)
+    prd_ok = sigma.zkprd_verify(g, h, lhs_comm, ans_b, z_comm,
+                                proof.prd_proof, prd_e)
     if not bool(eq_ok.all() & prd_ok):
         return torch.zeros((), dtype=torch.bool, device=dev)
 

@@ -12,10 +12,12 @@ import legosnark_tpu_torch
 from legosnark_tpu_torch import config, kernels
 from legosnark_tpu_torch.curve import bn254, cuda_group
 from legosnark_tpu_torch.curve import group as tg
+from legosnark_tpu_torch.examples import hadamard as hadamard_example
 from legosnark_tpu_torch.examples import matrixsc
 from legosnark_tpu_torch.fields import cuda_limb
 from legosnark_tpu_torch.fields import limb as fl
-from legosnark_tpu_torch.gadgets import matrix, poly
+from legosnark_tpu_torch.gadgets import hadamard, lipmaa, matrix, poly
+from legosnark_tpu_torch.prototools import ntt  # noqa: F401
 from legosnark_tpu_torch.probes import mont_variants
 from legosnark_tpu_torch.utils import rand, transcript
 
@@ -68,7 +70,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                 matrixsc.run, rand.rand_fr_mont,
                                 tg.g1_generator, tg.g2_generator,
                                 matrix.keygen_cached, poly.keygen_cached,
-                                transcript.Transcript, mont_variants.measure])
+                                transcript.Transcript, mont_variants.measure,
+                                hadamard.keygen, hadamard.keygen_cached,
+                                hadamard.make_nonces, lipmaa.keygen,
+                                lipmaa.keygen_cached, hadamard_example.run])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default is None
     assert config.resolve_device("cpu").type == "cpu"

@@ -88,6 +88,38 @@ def test_msm_batched_bases_share_scalars():
                                   oracle.g1_mul(oracle.G1, 2 * e)]
 
 
+def test_msm_batched_scalars():
+    """Rows of scalars against shared bases, and against a batch of bases
+    (broadcast), run as one MSM; each row equals its MSM alone."""
+    pts, ks, scalars = draw(9, 5)
+    rows = [scalars, scalars[::-1], [0] * 9]
+    P = tg.g1_from_ints(pts, "cpu")
+    s = torch.stack([fl.tensor(fl.ints_to_limbs(r), "cpu") for r in rows])
+    want = [oracle.g1_mul(oracle.G1, sum(k * x for k, x in zip(ks, r)))
+            for r in rows]
+    out = msm.msm(tg.G1, P, s, c=4)
+    assert out.x.shape == (3, 8, 1)
+    assert tg.g1_to_ints(out) == want
+    alone = msm.msm(tg.G1, P, s[1], c=4)
+    assert all(torch.equal(a, b[1]) for a, b in zip(alone, out))
+    both = tg.point_stack([P, tg.G1.double(P)])             # [2, 8, 9]
+    out2 = msm.msm(tg.G1, tg.Point(*(t[:, None] for t in both)), s, c=4)
+    assert out2.x.shape == (2, 3, 8, 1)
+    assert tg.g1_to_ints(out2) == want + [oracle.g1_mul(w, 2) for w in want]
+
+
+def test_g2_msm_matches_oracle():
+    rng = np.random.default_rng(6)
+    ks = [int(rng.integers(1, 1 << 30)) for _ in range(5)]
+    scalars = [int.from_bytes(rng.bytes(40), "little") % bn254.R
+               for _ in range(5)]
+    Q = tg.G2.scalar_mul(tg.g2_generator((), "cpu"),
+                         fl.tensor(fl.ints_to_limbs(ks), "cpu"))
+    out = msm.msm(tg.G2, Q, fl.tensor(fl.ints_to_limbs(scalars), "cpu"), c=4)
+    e = sum(k * x for k, x in zip(ks, scalars))
+    assert tg.g2_to_ints(out) == [oracle.g2_mul(oracle.G2, e)]
+
+
 def test_fixed_base_batch_matches_jax():
     rng = np.random.default_rng(4)
     ks = [int.from_bytes(rng.bytes(40), "little") % bn254.R
