@@ -38,12 +38,26 @@ Phases, each printing its result and times on its own line:
      beta(rho, r) a~(r) b~(r), every opening; CPhadL: c and pi as scalar
      multiples of G1, the G2 legs well formed); tampers verify false
      (CPhad: c != a o b re-proved, two round commitments swapped;
-     CPhadL: a proof for c != a o b).
-Then a `kernels` JSON line (with `ms_by_width` for K2 and K3), the
+     CPhadL: a proof for c != a o b);
+  9. CPlink at N = 2^10 (`examples.cplink.run(10)`): two commitment keys,
+     u committed under both, the sparse subspace keygen, prove, and one
+     pairing check of the proof and both knowledge legs, timed, with the
+     kernels' launch counts and widths; checked without the port's
+     arithmetic against host ints from the rebuilt seeds (c_H, c_F and
+     their G2 legs, every P_j, pi, C_i and a); four tampers fail (pi
+     doubled, F's commitment made to u' != u, x = (c_H, c_H), the
+     knowledge legs swapped between the commitments);
+ 10. CPAC (`examples.matrixac.run(8)`: 512 gates, 64 constraints, the
+     dense subspace key of a 67 x 1539 relation): verify true and the
+     flipped-output tamper false; the commitments, CPhadL's pi, the t_i G
+     and lin_pi equal host-int scalars times G1 (chi, the l_i(chi) and
+     k rebuilt from the seeds).
+Each phase's seconds follow it on a line of their own. Then a `kernels`
+JSON line (with `ms_by_width` for K2 and K3), the
 `nvidia-smi` name and power limit line, and as the last line
 {"ok": true, "device": {...}}.
 
-Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8]   (phase 7 needs 5)
+Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10]   (7 needs 5)
 Needs one CUDA card; exits non-zero without one, or when any check fails.
 """
 from __future__ import annotations
@@ -133,6 +147,55 @@ def aff_mul(p, k):
 
 def aff_neg(p):
     return None if p is None else (p[0], (-p[1]) % Q)
+
+
+#: the G2 generator (EIP-197), affine over Fq2 = Fq[u]/(u^2 + 1)
+G2_GEN = ((10857046999023057135944570762232829481370756359578518086990519993285655852781,
+           11559732032986387107991004021392285783925812861821192530917403151452391805634),
+          (8495653923123431417604973247489272438418190587263600148770280649306958101930,
+           4082367875863433681332203403145435568316851327593401208105741076214120093531))
+
+
+def f2_mul(a, b):
+    return ((a[0] * b[0] - a[1] * b[1]) % Q, (a[0] * b[1] + a[1] * b[0]) % Q)
+
+
+def f2_sub(a, b):
+    return ((a[0] - b[0]) % Q, (a[1] - b[1]) % Q)
+
+
+def f2_inv(a):
+    d = pow(a[0] * a[0] + a[1] * a[1], -1, Q)
+    return (a[0] * d % Q, -a[1] * d % Q)
+
+
+def aff2_add(p, q):
+    """Affine addition on the twist y^2 = x^3 + b' over Fq2."""
+    if p is None:
+        return q
+    if q is None:
+        return p
+    (x1, y1), (x2, y2) = p, q
+    if x1 == x2 and (y1[0] + y2[0]) % Q == 0 and (y1[1] + y2[1]) % Q == 0:
+        return None
+    if p == q:
+        x1sq = f2_mul(x1, x1)
+        lam = f2_mul((3 * x1sq[0], 3 * x1sq[1]), f2_inv((2 * y1[0], 2 * y1[1])))
+    else:
+        lam = f2_mul(f2_sub(y2, y1), f2_inv(f2_sub(x2, x1)))
+    x3 = f2_sub(f2_sub(f2_mul(lam, lam), x1), x2)
+    return (x3, f2_sub(f2_mul(lam, f2_sub(x1, x3)), y1))
+
+
+def aff2_mul(p, k):
+    k %= R
+    acc = None
+    while k:
+        if k & 1:
+            acc = aff2_add(acc, p)
+        p = aff2_add(p, p)
+        k >>= 1
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -902,6 +965,182 @@ def _hadamard_tampers(torch, dev, res) -> None:
     timed("CPhadL proof for c != a o b", lipmaa_wrong_product)
 
 
+def phase_cplink(torch, np, dev, log_n: int, kernels) -> dict:
+    """CPlink at N = 2^log_n, its host-int checks and tampers."""
+    from legosnark_tpu_torch.examples import cplink
+
+    _sync(torch, dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = cplink.run(log_n, device=dev)
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    log(f"# phase 9 CPlink N=2^{log_n}: launches {json.dumps(launches)} "
+        f"times {json.dumps({k: round(v, 3) for k, v in res['times'].items()})}"
+        f" total {total_s:.1f}s")
+    log(f"# phase 9 launch widths: {json.dumps(_widths(kernels))}")
+    check(res["ok"], "CPlink proof and both knowledge legs verify")
+    for name in MAIN_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} launched on the CPlink path")
+    _cplink_host_checks(np, res)
+    _cplink_tampers(dev, res)
+    log(f"# phase 9 ok: CPlink at N=2^{log_n} verifies, agrees with host "
+        f"ints from the rebuilt seeds, and rejects four tampers")
+    return {"launches": launches, "times": res["times"], "total_s": total_s}
+
+
+def _cplink_host_checks(np, res) -> None:
+    """The commitments, the subspace key and pi from host ints: the keys'
+    scalars s_h, s_f (seeds 1, 2 ^ 0x1E605), u, r_H, r_F (seed 23), k and
+    a_hat (seed 7 ^ 0x5AB5)."""
+    from legosnark_tpu_torch.curve.group import g1_to_ints, g2_to_ints
+    from legosnark_tpu_torch.utils import rand as lrand
+
+    t0 = time.perf_counter()
+    n = res["n"]
+    sh, sf = (lrand.rand_fr_ints(np.random.default_rng(seed ^ 0x1E605), n + 1)
+              for seed in (1, 2))
+    rng = np.random.default_rng(23)
+    u = [int.from_bytes(rng.bytes(31), "little") % R for _ in range(n)]
+    rh, rf = lrand.rand_fr_int(rng), lrand.rand_fr_int(rng)
+    for name, vin, s, r in (("H", res["vin_h"], sh, rh),
+                            ("F", res["vin_f"], sf, rf)):
+        v = (sum(a * b for a, b in zip(u, s)) + r * s[n]) % R
+        cm = vin.comm_in[0]
+        check(g1_to_ints(cm.c) == [aff_mul(G, v)],
+              f"c_{name} = (sum u_i s_i + r s_N) G1")
+        check(g2_to_ints(cm.kc) == [aff2_mul(G2_GEN, v)],
+              f"kc_{name} = (sum u_i s_i + r s_N) G2")
+    for name, ck, s in (("H", res["ck_h"], sh), ("F", res["ck_f"], sf)):
+        check(g1_to_ints(ck.h) + g1_to_ints(ck.g1s)[:4]
+              == [aff_mul(G, x) for x in [s[n]] + s[:4]],
+              f"key {name}: h and the first bases = s_i G1")
+    rng = np.random.default_rng(7 ^ 0x5AB5)
+    k, a_hat = lrand.rand_fr_ints(rng, 2), lrand.rand_fr_int(rng)
+    # columns h, f, the N base columns, then N empty ones
+    p = ([k[0] * sh[n] % R, k[1] * sf[n] % R]
+         + [(k[0] * a + k[1] * b) % R for a, b in zip(sh[:n], sf)] + [0] * n)
+    key = res["key"]
+    check(g1_to_ints(key.P) == [aff_mul(G, x) for x in p],
+          "P_j = (sum_i k_i sM_ij) G1 for every column")
+    w = [rh, rf] + u
+    pi = sum(a * b for a, b in zip(w, p))
+    check(g1_to_ints(res["pi"]) == [aff_mul(G, pi)],
+          "pi = (sum_j w_j p_j) G1")
+    check(g2_to_ints(key.C) == [aff2_mul(G2_GEN, x * a_hat) for x in k],
+          "C_i = (k_i a_hat) G2")
+    check(g2_to_ints(key.a) == [aff2_mul(G2_GEN, a_hat)], "a = a_hat G2")
+    log(f"# phase 9 host checks: c_H, c_F and their G2 legs, all {len(p)} "
+        f"P_j, pi, C and a equal host ints ({time.perf_counter() - t0:.1f}s)")
+
+
+def _cplink_tampers(dev, res) -> None:
+    """Four tampered statements in one `pairing_checks`, each false."""
+    from legosnark_tpu_torch.curve import bn254
+    from legosnark_tpu_torch.curve import pairing as pr
+    from legosnark_tpu_torch.curve.group import G1, point_concat
+    from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.gadgets import subspace
+    from legosnark_tpu_torch.prototools import commit as cs
+
+    t0 = time.perf_counter()
+    key, x, pi = res["key"], res["x"], res["pi"]
+    cH, cF = res["vin_h"].comm_in[0], res["vin_f"].comm_in[0]
+    u_bad = res["u"].clone()
+    u_bad[:, :1] = fl.add(bn254.FR, u_bad[:, :1], fl.one(bn254.FR, (), dev))
+    cF_bad = cs.commit(res["ck_f"], u_bad, res["pin_f"].comm_slot[0].r).c
+    cases = {
+        "pi doubled": subspace.verify_pairings(key, x, G1.double(pi)),
+        "F's commitment made to u' != u": subspace.verify_pairings(
+            key, point_concat([cH.c, cF_bad.c]), pi),
+        "x = (c_H, c_H)": subspace.verify_pairings(
+            key, point_concat([cH.c, cH.c]), pi),
+        "knowledge legs swapped": cs.knowledge_pairings(
+            res["ck_h"], cs.Comm(cH.c, cF.kc)),
+    }
+    verdicts = pr.pairing_checks([g for gs in cases.values()
+                                  for g in gs]).tolist()
+    for what, ok in zip(cases, verdicts):
+        log(f"# phase 9 tamper '{what}': verify {ok}")
+        check(ok is False, f"tampered statement ({what}) verifies false")
+    log(f"# phase 9 tampers: {time.perf_counter() - t0:.2f}s")
+
+
+def phase_matrixac(torch, np, dev, n: int, kernels) -> dict:
+    """CPAC on an n x n matrix product, with host-int checks."""
+    from legosnark_tpu_torch.examples import matrixac
+
+    _sync(torch, dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = matrixac.run(n, device=dev)
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    log(f"# phase 10 CPAC matrixac n={n} ({res['rel'].n} gates): launches "
+        f"{json.dumps(launches)} times "
+        f"{json.dumps({k: round(v, 3) for k, v in res['times'].items()})} "
+        f"total {total_s:.1f}s (the tamper's prove and verify included)")
+    log(f"# phase 10 launch widths: {json.dumps(_widths(kernels))}")
+    check(res["ok"], "CPAC proof verifies")
+    check(res["tamper_rejected"], "CPAC proof with a flipped output fails")
+    for name in MAIN_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} launched on the CPAC path")
+    _matrixac_host_checks(np, n, res)
+    log(f"# phase 10 ok: CPAC at n={n} verifies, rejects the flipped output "
+        f"and agrees with host ints")
+    return {"launches": launches, "times": res["times"], "total_s": total_s}
+
+
+def _matrixac_host_checks(np, n: int, res) -> None:
+    """The wires' commitments, CPhadL's pi, t_i G and lin_pi as host-int
+    scalars times G1: the data drawn again from seed 0xAC0 + n, chi from
+    CPhadL's seed 7 ^ 0x11BA, k from the subspace seed (7 ^ 0xAC) ^ 0x5AB5."""
+    from legosnark_tpu_torch.curve.bn254 import fr_two_adic_root
+    from legosnark_tpu_torch.curve.group import g1_to_ints
+    from legosnark_tpu_torch.utils import rand as lrand
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0xAC0 + n)
+    A = [[lrand.rand_fr_int(rng) for _ in range(n)] for _ in range(n)]
+    B = [[lrand.rand_fr_int(rng) for _ in range(n)] for _ in range(n)]
+    ds = lrand.rand_fr_ints(rng, 3)
+    check(_ints(res["ds"]) == ds, "the commitments' r drawn again")
+    gates = [(i, k, j) for i in range(n) for k in range(n) for j in range(n)]
+    ng = len(gates)
+    wires = ([A[i][k] for i, k, _ in gates], [B[k][j] for _, k, j in gates])
+    wires += ([x * y % R for x, y in zip(*wires)],)
+    t = [sum(A[i][k] * B[k][j] for k in range(n)) % R
+         for i in range(n) for j in range(n)]
+    rng = np.random.default_rng(7 ^ 0x11BA)
+    chi = lrand.rand_fr_int(rng)
+    w_n = fr_two_adic_root(ng.bit_length() - 1)
+    z = (pow(chi, ng, R) - 1) % R
+    lag, wi = [], 1
+    for _ in range(ng):
+        lag.append(z * wi * pow(ng * (chi - wi), -1, R) % R)
+        wi = wi * w_n % R
+    s = [(sum(a * b for a, b in zip(v, lag)) + d * z) % R
+         for v, d in zip(wires, ds)]
+    pf = res["proof"]
+    for name, cm, sv in zip("lro", (pf.ca, pf.cb, pf.cc), s):
+        check(g1_to_ints(cm.c) == [aff_mul(G, sv)],
+              f"c_{name} = (sum v_i l_i(chi) + d Z(chi)) G1")
+    check(g1_to_ints(pf.had_pi) == [aff_mul(G, (s[0] * s[1] - s[2])
+                                            * pow(z, -1, R))],
+          "had_pi = H(chi) G1")
+    check(g1_to_ints(res["key"].t_points) == [aff_mul(G, x) for x in t],
+          "t_points = c_ij G1")
+    rng = np.random.default_rng((7 ^ 0xAC) ^ 0x5AB5)
+    k = lrand.rand_fr_ints(rng, 3 + len(t))
+    # row 3 + (i n + j) of the relation sums the gates' outputs o_ikj into
+    # c_ij, so <M_row, w> = c_ij
+    lin = sum(a * b for a, b in zip(k, s)) + sum(a * b for a, b in zip(k[3:], t))
+    check(g1_to_ints(pf.lin_pi) == [aff_mul(G, lin)],
+          "lin_pi = (sum_i k_i <M_i, w>) G1")
+    log(f"# phase 10 host checks: commitments, had_pi, {len(t)} t_i G and "
+        f"lin_pi equal host ints ({time.perf_counter() - t0:.1f}s)")
+
+
 #: name -> (source, the TPU kernel it replaces, on the main path?)
 KERNELS = {
     "mont_mul": ("legosnark_tpu_torch/csrc/mont_mul.cu",
@@ -924,7 +1163,7 @@ KERNELS = {
 
 
 def main(argv) -> int:
-    phases = {1, 2, 3, 4, 5, 6, 7, 8}
+    phases = set(range(1, 11))
     if "--phases" in argv:
         phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
     if 7 in phases and 5 not in phases:
@@ -948,20 +1187,34 @@ def main(argv) -> int:
         return 2
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
+    phase_s = {}
+
+    def timed(k, fn, *args):
+        """Phase k's result; its seconds on a line of their own."""
+        if k not in phases:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[k] = round(time.perf_counter() - t0, 1)
+        log(f"# phase {k} seconds: {phase_s[k]}")
+        return out
+
     start = phase_startup(torch, kernels)
-    stats = phase_kernels(torch, np, dev, 1 << 20) if 2 in phases else {}
-    if 3 in phases:
-        phase_msm(torch, np, dev, 1 << 20, 17)
-    if 4 in phases:
-        phase_parity(torch, dev)
-    hv = phase_cpmmp(torch, np, dev, 10, kernels) if 5 in phases else None
-    if 6 in phases:
-        stats.update(phase_probes(torch, np, dev))
-    fs = phase_fs(torch, dev, kernels, hv["res"]) if 7 in phases else None
-    had = phase_hadamard(torch, np, dev, 14, kernels) if 8 in phases else None
+    log(f"# phase 1 seconds: {time.perf_counter() - t_all:.1f}")
+    stats = timed(2, phase_kernels, torch, np, dev, 1 << 20) or {}
+    timed(3, phase_msm, torch, np, dev, 1 << 20, 17)
+    timed(4, phase_parity, torch, dev)
+    hv = timed(5, phase_cpmmp, torch, np, dev, 10, kernels)
+    stats.update(timed(6, phase_probes, torch, np, dev) or {})
+    fs = timed(7, lambda: phase_fs(torch, dev, kernels, hv["res"]))
+    had = timed(8, phase_hadamard, torch, np, dev, 14, kernels)
+    link = timed(9, phase_cplink, torch, np, dev, 10, kernels)
+    mac = timed(10, phase_matrixac, torch, np, dev, 8, kernels)
     paths = {"cpmmp_hv_1024": hv["launches"] if hv else {},
              "cpmmp_fs_1024": fs["launches"] if fs else {},
-             "hadamard_2e14": had["launches"] if had else {}}
+             "hadamard_2e14": had["launches"] if had else {},
+             "cplink_2e10": link["launches"] if link else {},
+             "matrixac_8": mac["launches"] if mac else {}}
     rows = []
     for name, (src, tpu, on_path) in KERNELS.items():
         st = stats.get(name, {})
@@ -977,7 +1230,8 @@ def main(argv) -> int:
                      "ms_by_width": st.get("ms_by_width")})
         rows[-1].update({k: v for k, v in st.items()
                          if k.startswith(("times", "host_ms_by", "ms_by"))})
-    summary = {"phase_s": round(time.perf_counter() - t_all, 1)}
+    summary = {"phase_s": round(time.perf_counter() - t_all, 1),
+               "seconds_by_phase": phase_s}
     if hv:
         summary.update({"hv_1024": {k: round(v, 3)
                                     for k, v in hv["times"].items()},
@@ -985,9 +1239,10 @@ def main(argv) -> int:
     if fs:
         summary.update({"fs_prove_s": round(fs["prove_s"], 3),
                         "fs_verify_s": round(fs["verify_s"], 3)})
-    if had:
-        summary.update({"hadamard_2e14": {k: round(v, 3)
-                                          for k, v in had["times"].items()}})
+    for name, res in (("hadamard_2e14", had), ("cplink_2e10", link),
+                      ("matrixac_8", mac)):
+        if res:
+            summary[name] = {k: round(v, 3) for k, v in res["times"].items()}
     log(f"# all phases {sorted(phases)} passed: {json.dumps(summary)}")
     print(json.dumps({"kernels": rows}))
     print(start["smi"])

@@ -145,6 +145,43 @@ def hadlkey_from_jax(key, device):
                 for f in ("lag_g1", "lag_kg2", "z_g1", "z_kg2"))))
 
 
+def commitkey_from_jax(ck, device):
+    """A JAX `CommitmentKey` (`prototools.commit`) -> the port's."""
+    from .prototools.commit import CommitmentKey
+    return CommitmentKey(*(point_from_jax(p, device) for p in ck))
+
+
+def comm_from_jax(cm, device):
+    """A JAX `Comm` (commitment and knowledge leg) -> the port's."""
+    from .prototools.commit import Comm
+    return Comm(point_from_jax(cm.c, device), point_from_jax(cm.kc, device))
+
+
+def subspacekey_from_jax(key, device):
+    """A JAX `SubspaceKey` -> the port's."""
+    from .gadgets.subspace import SubspaceKey
+    return SubspaceKey(*(point_from_jax(p, device) for p in key))
+
+
+def ackey_from_jax(key, device):
+    """A JAX `ACKey` (CPAC) -> the port's."""
+    from .gadgets.arithcirc import ACKey
+    return ACKey(hadlkey_from_jax(key.hadl_key, device),
+                 subspacekey_from_jax(key.ss_key, device),
+                 point_from_jax(key.t_points, device))
+
+
+def acproof_from_jax(pf, device):
+    """A JAX `ACProof` -> the port's."""
+    from .gadgets.arithcirc import ACProof
+    from .gadgets.lipmaa import InterpComm
+    return ACProof(*(InterpComm(point_from_jax(cm.c, device),
+                                point_from_jax(cm.kc, device))
+                     for cm in (pf.ca, pf.cb, pf.cc)),
+                   point_from_jax(pf.had_pi, device),
+                   point_from_jax(pf.lin_pi, device))
+
+
 def to_ints(x, spec: FieldSpec = bn254.FR, g2: bool = False):
     """Canonical integers of port values: Montgomery limbs [..., 8, n] ->
     object array [..., n]; a `Point` -> flat list of affine (x, y), or

@@ -19,6 +19,8 @@ Every add and double of a G1 MSM runs in kernels K2/K3.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -145,6 +147,17 @@ def fixed_base_table(C: CurveOps, base: Point, c: int = 8,
         tab = point_map(lambda t, s: torch.cat([t, s], -1), tab,
                         C.add(tab, step))
     return tab
+
+
+@functools.lru_cache(None)
+def generator_table(C: CurveOps, device: torch.device) -> Point:
+    """`fixed_base_table` of C's generator with c = 8, built once per
+    curve and device: on G2 it is 248 sequential doublings in torch code,
+    which every keygen of a process would otherwise repeat. Callers must
+    not write into it."""
+    from .group import g1_generator, g2_generator
+    gen = g1_generator if C.g1 else g2_generator
+    return fixed_base_table(C, gen((), device), c=8)
 
 
 def batch_scalar_mul(C: CurveOps, table: Point, scalars, c: int = 8,

@@ -8,7 +8,8 @@ keygen (seed 1), commits A and B, proves that C = A*B with C public, and
 verifies. Fiat-Shamir is the default: r, s and every sumcheck challenge
 come from the transcript. `--hv` selects the honest-verifier mode, whose
 challenges are drawn from the seed after keygen, as in the JAX example.
-Prints `##` timings and VERIFY OK or VERIFY FAIL (exit code 1).
+Prints `##` timings, the proof size and VERIFY OK or VERIFY FAIL (exit
+code 1).
 
 Usage: python -m legosnark_tpu_torch.examples.matrixsc [MIN_D] [MAX_D]
        [--hv] [--cpu]   (n = 2^D per dimension)
@@ -62,8 +63,9 @@ def _sync(device):
 
 def run(d: int, device=None, fs: bool = True) -> dict:
     """CPmmp at n = 2^d, Fiat-Shamir unless fs=False; returns inputs, key,
-    commitments, proof, the challenges, `ok` and the phase times in
-    seconds (`verify_s` among them)."""
+    commitments, proof, the challenges, `ok`, `proof_size` (group and
+    field elements) and the phase times in seconds (`verify_s` among
+    them)."""
     dev = resolve_device(device)
     n = 1 << d
     rng = np.random.default_rng(17 + d)
@@ -127,12 +129,15 @@ def run(d: int, device=None, fs: bool = True) -> dict:
     times["verify_s"] = time.perf_counter() - t0
 
     mode = "fiat-shamir" if fs else "honest-verifier"
+    sizes = cpmat.proof_size_group_elements(key)
     print(f"=== CPmmp n={n}x{n} (d={d}) {mode} on {dev} ===")
     for phase in ("data", "keygen", "commit", "prove", "verify"):
         print(f"## matrix_{phase}_d{d}: {times[phase + '_s']:.3f}s", flush=True)
+    print(f"## proof size: {sizes['g1']} G1 + {sizes['g2']} G2 + "
+          f"{sizes['fr']} Fr")
     print(f"VERIFY {'OK' if ok else 'FAIL'}", flush=True)
     out.update({"a_comm": a_cm, "b_comm": b_cm, "proof": pf, "ok": ok,
-                "times": times})
+                "times": times, "proof_size": sizes})
     return out
 
 

@@ -26,32 +26,36 @@ def _split16(x):
     return h.reshape(x.shape[:-2] + (2 * NLIMBS, x.shape[-1]))
 
 
+@functools.lru_cache(None)
+def _diagonals(A: int, B: int, device: torch.device) -> torch.Tensor:
+    """i + j for the flattened outer product's entry i*B + j."""
+    return (torch.arange(A)[:, None] + torch.arange(B)).reshape(-1).to(device)
+
+
 def _conv(x, y):
     """Product columns out[k] = sum_{i+j=k} x[i]*y[j] along axis -2:
-    [..., A, V] x [..., B, V] -> [..., A+B-1, V]. The outer product's row
-    i is skewed right by i (pad each row to A+B, flatten, drop the tail,
-    refold at width A+B-1), then the rows are summed."""
+    [..., A, V] x [..., B, V] -> [..., A+B-1, V]: the outer product's
+    entries added into their anti-diagonals by one `index_add_`."""
     A, B = x.shape[-2], y.shape[-2]
-    outer = x[..., :, None, :] * y[..., None, :, :]           # [.., A, B, V]
-    lead, V = outer.shape[:-3], outer.shape[-1]
-    z = torch.zeros(lead + (A, A, V), dtype=outer.dtype, device=outer.device)
-    sk = torch.cat([outer, z], dim=-2).reshape(lead + (A * (A + B), V))
-    sk = sk[..., : A * (A + B - 1), :].reshape(lead + (A, A + B - 1, V))
-    return sk.sum(dim=-3)
+    outer = (x[..., :, None, :] * y[..., None, :, :]).flatten(-3, -2)
+    out = torch.zeros(outer.shape[:-2] + (A + B - 1, outer.shape[-1]),
+                      dtype=outer.dtype, device=outer.device)
+    return out.index_add_(-2, _diagonals(A, B, outer.device), outer)
 
 
 def mont_mul_plain(spec: FieldSpec, a, b):
     """a*b/R in torch ops, on 16-bit halves so every column fits int64.
 
     t = a*b has columns < 16*2^32 = 2^36; the low half of t times
-    -p^-1 has columns < 16*2^36*2^16 = 2^56 (four carry passes reach
-    limbs <= 2^16), and t + M*p columns stay < 2^37 (three passes)."""
+    -p^-1 has columns < 16*2^36*2^16 = 2^56 (three carry passes reach
+    limbs < 2^16 + 2^9), and t + M*p columns stay < 2^37 (two passes
+    reach limbs < 2^16 + 2^6), within `exact`'s 2^17 - 2."""
     a, b = torch.broadcast_tensors(a, b)
     c = consts(spec, a.device)
     h = 2 * NLIMBS
     t = _conv(_split16(a), _split16(b))                        # 31 columns
-    m = exact(_conv(t[..., :h, :], c["ninv16"][:, None])[..., :h, :], 16, 4)
-    u = exact(pad_top(t) + pad_top(_conv(m, c["p16"])), 16, 3)  # 32 limbs
+    m = exact(_conv(t[..., :h, :], c["ninv16"][:, None])[..., :h, :], 16, 3)
+    u = exact(pad_top(t) + pad_top(_conv(m, c["p16"])), 16, 2)  # 32 limbs
     hi = u[..., h:, :]                                          # (t + Mp)/R
     return narrow(hi[..., 0::2, :] | (hi[..., 1::2, :] << 16))
 

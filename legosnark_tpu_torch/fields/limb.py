@@ -193,9 +193,10 @@ def exact(x: torch.Tensor, bits: int, passes: int) -> torch.Tensor:
     """Exact `bits`-bit limbs of the column sum mod 2^(bits*K).
 
     x: non-negative int64 columns [..., K, V]. `passes` magnitude passes
-    must bring every column to at most 2^bits; then the carry into limb i
-    is 1 iff the nearest limb below i that is not all ones equals 2^bits,
-    found by one cumulative max over (2j+2 | generate bit)."""
+    must bring every column to at most 2^(bits+1) - 2; then every carry is
+    0 or 1, and the carry into limb i is 1 iff the nearest limb below i
+    that is not all ones is at least 2^bits, found by one cumulative max
+    over (2j+2 | generate bit)."""
     mask = (1 << bits) - 1
     for _ in range(passes):
         x = (x & mask) + shift_up(x >> bits)
@@ -206,8 +207,9 @@ def exact(x: torch.Tensor, bits: int, passes: int) -> torch.Tensor:
 
 def _exact_pair(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """Exact 32-bit limbs of two column sets at once, one limb taller:
-    [2, ..., 9, V]. Columns are < 3*2^32, so two passes suffice."""
-    return exact(pad_top(torch.stack([lo, hi])), LIMB_BITS, 2)
+    [2, ..., 9, V]. Columns are < 3*2^32, so one pass leaves them at most
+    2^32 + 1."""
+    return exact(pad_top(torch.stack([lo, hi])), LIMB_BITS, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +247,7 @@ def canon(spec: FieldSpec, x):
     u = widen(x)
     comps = consts(spec, x.device)["canon_comps64"]     # R - kp, k = 1..3
     comps = comps.view((3,) + (1,) * (u.dim() - 2) + comps.shape[-2:])
-    t = exact(pad_top(u + comps), LIMB_BITS, 2)
+    t = exact(pad_top(u + comps), LIMB_BITS, 1)         # columns < 2^33
     for k in range(3):
         u = torch.where(t[k, ..., NLIMBS:, :] > 0, t[k, ..., :NLIMBS, :], u)
     return narrow(u)

@@ -31,8 +31,7 @@ from ..config import resolve_device
 from ..curve import bn254
 from ..curve import msm as msm_mod
 from ..curve import pairing as pr
-from ..curve.group import (G1, G2, Point, g1_generator, g2_generator,
-                           point_concat, point_map)
+from ..curve.group import G1, G2, Point, g1_generator, point_concat, point_map
 from ..fields import limb as fl
 from ..prototools import ntt
 from ..utils import rand as lrand
@@ -64,6 +63,11 @@ class InterpComm(NamedTuple):
     kc: Point  # G2
 
 
+def proof_size_group_elements() -> dict:
+    """pi is one G1 element."""
+    return {"g1": 1, "g2": 0, "fr": 0}
+
+
 def _cols(p: Point, lo: int, hi: int) -> Point:
     return point_map(lambda x: x[..., lo:hi], p)
 
@@ -85,8 +89,8 @@ def keygen(n: int, seed: int = 0, device=None) -> HadLKey:
                                                dev))
     pows = fl.tensor(ntt.power_limbs(chi, n + 1), dev)    # chi^0..chi^n
 
-    t1 = msm_mod.fixed_base_table(G1, g1_generator((), dev), c=8)
-    t2 = msm_mod.fixed_base_table(G2, g2_generator((), dev), c=8)
+    t1 = msm_mod.generator_table(G1, dev)
+    t2 = msm_mod.generator_table(G2, dev)
     g1s = msm_mod.batch_scalar_mul(
         G1, t1, fl.from_mont(FR, torch.cat([lag_z, pows], dim=-1)), c=8)
     g2s = msm_mod.batch_scalar_mul(G2, t2, fl.from_mont(FR, lag_z_g), c=8)
@@ -156,10 +160,15 @@ def prove(key: HadLKey, a_evals, b_evals, c_evals, d_mont) -> Point:
     return msm_mod.msm(G1, key.chi_pows, fl.from_mont(FR, h_full))
 
 
+def verify_pairings(key: HadLKey, ca: InterpComm, cb: InterpComm,
+                    cc: InterpComm, pi: Point) -> list:
+    """e(ca, kc_b) == e(G1, kc_c) e(pi, gamma Z(chi) G2) as one group of
+    three pairs whose product is 1, for `pairing_checks`."""
+    return [(point_concat([G1.neg(ca.c), g1_generator((), pi.x.device), pi]),
+             point_concat([cb.kc, cc.kc, key.interp.z_kg2]))]
+
+
 def verify(key: HadLKey, ca: InterpComm, cb: InterpComm, cc: InterpComm,
            pi: Point):
-    """e(ca, kc_b) == e(G1, kc_c) e(pi, gamma Z(chi) G2), as one product
-    of three pairings equal to 1 -> bool []."""
-    g1s = point_concat([G1.neg(ca.c), g1_generator((), pi.x.device), pi])
-    g2s = point_concat([cb.kc, cc.kc, key.interp.z_kg2])
-    return pr.pairing_product_is_one(g1s, g2s)
+    """The verification equation -> bool []."""
+    return pr.pairing_checks(verify_pairings(key, ca, cb, cc, pi)).all()

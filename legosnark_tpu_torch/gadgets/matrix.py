@@ -48,6 +48,15 @@ class MatProof(NamedTuple):
     c_poly_pf: Any          # CPpoly proof for committed C (None in clear)
 
 
+def proof_size_group_elements(key: MatKey) -> dict:
+    """Proof size (`MatPf::getSize`): the degree-2 sumcheck's, plus
+    t_comm, the answer commitment for C and two openings over 2d
+    variables; r and s in Fr."""
+    sc = cpsc.proof_size_group_elements(key.d, 2)
+    return {"g1": sc["g1"] + 2 + 2 * 2 * key.d, "g2": sc["g2"],
+            "fr": sc["fr"] + 2 * key.d}
+
+
 def _log2(n: int) -> int:
     d = int(n).bit_length() - 1
     if 1 << d != n:

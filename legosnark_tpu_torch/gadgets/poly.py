@@ -60,6 +60,12 @@ def poly_d(key: PolyKey) -> int:
     return len(key.bases) - 1
 
 
+def proof_size_group_elements(d: int) -> dict:
+    """Proof size of an opening over d variables (`PolyPf::getSize`):
+    W_i and its alpha leg per variable."""
+    return {"g1": 2 * d, "g2": 0, "fr": 0}
+
+
 class PolyComm(NamedTuple):
     c: Point    # <B_0, v>
     ca: Point   # alpha leg
@@ -80,7 +86,7 @@ def keygen(d: int, seed: int = 0, device=None) -> PolyKey:
     s_mont = fl.tensor(FR.to_mont_ints(s_ints), dev)       # [8, d]
     alpha = fl.tensor(FR.to_mont_ints([alpha_int]), dev)   # [8, 1]
 
-    table = msm_mod.fixed_base_table(G1, g1_generator((), dev), c=8)
+    table = msm_mod.generator_table(G1, dev)
     parts = []
     for j in range(d + 1):
         eqt = mle.mk_beta(s_mont[..., j:])                 # [8, 2^(d-j)]
@@ -99,7 +105,7 @@ def keygen(d: int, seed: int = 0, device=None) -> PolyKey:
         bases_a.append(point_map(lambda x, o=off, k=m: x[..., o : o + k], pts))
         off += m
 
-    g2t = msm_mod.fixed_base_table(G2, g2_generator((), dev), c=8)
+    g2t = msm_mod.generator_table(G2, dev)
     sa = torch.cat([fl.from_mont(FR, s_mont), fl.from_mont(FR, alpha)], dim=-1)
     g2_pts = msm_mod.batch_scalar_mul(G2, g2t, sa, c=8)
     g2_s = point_map(lambda x: x[..., :d], g2_pts)

@@ -31,6 +31,12 @@ def rand_fr_mont(rng: np.random.Generator, n: int, device=None):
     return fl.tensor(bn254.FR.to_mont_ints(rand_fr_ints(rng, n)), dev)
 
 
+def rand_fr_canonical(rng: np.random.Generator, n: int, device=None):
+    """[8, n] uniform canonical (standard-form) Fr limbs."""
+    dev = resolve_device(device)
+    return fl.tensor(fl.ints_to_limbs(rand_fr_ints(rng, n)), dev)
+
+
 def rand_fr_limbs_fast(rng: np.random.Generator, n: int,
                        bits: int = 253) -> np.ndarray:
     """int32 numpy [8, n] canonical limbs uniform in [0, 2^bits).

@@ -10,6 +10,9 @@ The Fiat-Shamir transcript absorbs points in the port's own encoding
 (ROADMAP R5), so those proofs cannot equal the JAX package's byte for
 byte; they are held to verification.
 """
+import contextlib
+import io
+
 import numpy as np
 import pytest
 import torch
@@ -36,8 +39,12 @@ FR = bn254.FR
 def hv():
     """The port's own n = 4 honest-verifier keygen -> commit -> prove ->
     verify (the example's `run`, verify included). Its key and
-    commitments serve the Fiat-Shamir proofs too."""
-    return matrixsc.run(2, device="cpu", fs=False)
+    commitments serve the Fiat-Shamir proofs too. Its printed lines are
+    kept under "stdout"."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = matrixsc.run(2, device="cpu", fs=False)
+    return {**res, "stdout": out.getvalue()}
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +77,17 @@ def _verify(res, proof=None, C=None):
 
 def test_hv_round_trip(hv):
     assert hv["ok"] is True
+
+
+def test_example_reports_proof_size(hv):
+    """`run` returns the JAX package's proof size for the same d and
+    prints it as the JAX example does."""
+    from legosnark_tpu.gadgets import matrix as jmatrix
+
+    want = jmatrix.proof_size_group_elements(hv["key"])
+    assert hv["proof_size"] == want
+    assert (f"## proof size: {want['g1']} G1 + {want['g2']} G2 + "
+            f"{want['fr']} Fr\n") in hv["stdout"]
     assert set(hv["times"]) >= {"keygen_s", "commit_s", "prove_s",
                                 "verify_s"}
 
