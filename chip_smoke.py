@@ -51,13 +51,22 @@ Phases, each printing its result and times on its own line:
      dense subspace key of a 67 x 1539 relation): verify true and the
      flipped-output tamper false; the commitments, CPhadL's pi, the t_i G
      and lin_pi equal host-int scalars times G1 (chi, the l_i(chi) and
-     k rebuilt from the seeds).
+     k rebuilt from the seeds);
+ 11. Groth16 on the n = 64 matmul R1CS (`examples.legogrothmatrix.run(64)`:
+     2^18 constraints, 270337 variables): keygen, prove, verify and the
+     emulated witness commitment, timed, with the kernels' launch counts
+     per phase, their widths and the phase's peak device memory; 32
+     sampled elements of each key query and A, B, C equal host-int
+     scalars times G1 or G2 (the trapdoor and r, s drawn again from the
+     seeds, the QAP values from host Lagrange values); the honest proof
+     and three tampers (a public output + 1, A and C swapped, B + G2) in
+     one `pairing_checks`, only the honest one true.
 Each phase's seconds follow it on a line of their own. Then a `kernels`
 JSON line (with `ms_by_width` for K2 and K3), the
 `nvidia-smi` name and power limit line, and as the last line
 {"ok": true, "device": {...}}.
 
-Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10]   (7 needs 5)
+Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11]   (7 needs 5)
 Needs one CUDA card; exits non-zero without one, or when any check fails.
 """
 from __future__ import annotations
@@ -1141,6 +1150,147 @@ def _matrixac_host_checks(np, n: int, res) -> None:
         f"lin_pi equal host ints ({time.perf_counter() - t0:.1f}s)")
 
 
+def phase_groth16(torch, np, dev, n: int, kernels) -> dict:
+    """Groth16 on the n x n matmul R1CS, its host-int checks and tampers."""
+    from legosnark_tpu_torch.examples import legogrothmatrix
+
+    _sync(torch, dev)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = legogrothmatrix.run(n, device=dev)
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    r1cs = res["r1cs"]
+    log(f"# phase 11 Groth16 n={n} ({len(r1cs.A)} constraints, "
+        f"{r1cs.num_vars} vars): launches {json.dumps(launches)} times "
+        f"{json.dumps({k: round(v, 3) for k, v in res['times'].items()})} "
+        f"total {total_s:.1f}s peak device memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    log(f"# phase 11 launches by phase: {json.dumps(res['launches'])}")
+    log(f"# phase 11 launch widths: {json.dumps(_widths(kernels))}")
+    check(res["ok"], "the Groth16 proof verifies")
+    for name in MAIN_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"{name} launched on the Groth16 path")
+    _groth16_host_checks(np, res)
+    _groth16_tampers(dev, res)
+    log(f"# phase 11 ok: Groth16 at n={n} verifies, its key samples and "
+        f"proof equal host ints, and three tampers fail")
+    return {"launches": launches, "times": res["times"], "total_s": total_s,
+            "peak_bytes": peak}
+
+
+def _groth16_host_checks(np, res, samples: int = 32) -> None:
+    """32 sampled elements of each key query, the key's single elements
+    and A, B, C as host-int scalars times G1 or G2: the data drawn again
+    from rng 67 + n, the trapdoor from seed n ^ 0x6706, r and s from
+    n ^ 0x6707, the Lagrange values of the domain at tau computed here."""
+    from legosnark_tpu_torch.curve.bn254 import fr_two_adic_root
+    from legosnark_tpu_torch.curve.group import (g1_to_ints, g2_to_ints,
+                                                 point_map)
+
+    def draws(rng, k):
+        return [int.from_bytes(rng.bytes(40), "little") % R for _ in range(k)]
+
+    t0 = time.perf_counter()
+    n, r1cs, z, pk, vk = res["n"], res["r1cs"], res["z"], res["pk"], res["vk"]
+    rng = np.random.default_rng(67 + n)
+    A, B = draws(rng, n * n), draws(rng, n * n)
+    check(res["public"] == [sum(A[i * n + k] * B[k * n + j] for k in range(n))
+                            % R for i in range(n) for j in range(n)],
+          "the public outputs are C = A B of the redrawn data")
+    tau, alpha, beta, gamma, delta = draws(
+        np.random.default_rng(n ^ 0x6706), 5)
+    r, s = draws(np.random.default_rng(n ^ 0x6707), 2)
+    m, nv, npub = len(r1cs.A), r1cs.num_vars, r1cs.num_public + 1
+    d = 1 << (m - 1).bit_length()
+    root = fr_two_adic_root(d.bit_length() - 1)
+    z_tau = (pow(tau, d, R) - 1) % R
+    lag, wj = [], 1
+    for _ in range(d):
+        lag.append(z_tau * wj * pow(d * (tau - wj), -1, R) % R)
+        wj = wj * root % R
+    u, v, w = [0] * nv, [0] * nv, [0] * nv
+    for rows, acc in ((r1cs.A, u), (r1cs.B, v), (r1cs.C, w)):
+        for row, lj in zip(rows, lag):
+            for var, coef in row:
+                acc[var] = (acc[var] + coef * lj) % R
+    comb = [(beta * a + alpha * b + c) % R for a, b, c in zip(u, v, w)]
+    dinv, ginv = pow(delta, -1, R), pow(gamma, -1, R)
+    queries = {   # name -> (points, scalar of index i, on G2?)
+        "a_query": (pk.a_query, lambda i: u[i], False),
+        "b1_query": (pk.b1_query, lambda i: v[i], False),
+        "b2_query": (pk.b2_query, lambda i: v[i], True),
+        "h_query": (pk.h_query, lambda i: pow(tau, i, R) * z_tau * dinv,
+                    False),
+        "l_query": (pk.l_query, lambda i: comb[npub + i] * dinv, False),
+        "ic": (vk.ic, lambda i: comb[i] * ginv, False)}
+    pick = np.random.default_rng(11)
+    for name, (pts, scalar, on_g2) in queries.items():
+        width = pts.x.shape[-1]
+        idx = sorted(int(i) for i in pick.choice(width, min(samples, width),
+                                                 replace=False))
+        got = (g2_to_ints if on_g2 else g1_to_ints)(
+            point_map(lambda t: t[..., idx], pts))
+        want = [aff2_mul(G2_GEN, scalar(i)) if on_g2 else aff_mul(G, scalar(i))
+                for i in idx]
+        check(got == want, f"{name} at {len(idx)} sampled indices")
+    check(g1_to_ints(pk.alpha_g1) + g1_to_ints(pk.beta_g1)
+          + g1_to_ints(pk.delta_g1) == [aff_mul(G, x)
+                                        for x in (alpha, beta, delta)],
+          "alpha, beta, delta in G1")
+    check(g2_to_ints(pk.beta_g2) + g2_to_ints(vk.gamma_g2)
+          + g2_to_ints(pk.delta_g2) == [aff2_mul(G2_GEN, x)
+                                        for x in (beta, gamma, delta)],
+          "beta, gamma, delta in G2")
+    a = sum(x * y for x, y in zip(z, u)) % R
+    b = sum(x * y for x, y in zip(z, v)) % R
+    c = sum(x * y for x, y in zip(z, w)) % R
+    priv = sum(x * y for x, y in zip(z[npub:], comb[npub:]))
+    a_s = (alpha + a + r * delta) % R
+    b_s = (beta + b + s * delta) % R
+    c_s = ((priv + a * b - c) * dinv + s * a_s + r * b_s - r * s * delta) % R
+    pf = res["pf"]
+    check(g1_to_ints(pf.a) == [aff_mul(G, a_s)],
+          "A = (alpha + a(tau) + r delta) G1")
+    check(g2_to_ints(pf.b) == [aff2_mul(G2_GEN, b_s)],
+          "B = (beta + b(tau) + s delta) G2")
+    check(g1_to_ints(pf.c) == [aff_mul(G, c_s)],
+          "C = ((priv + a b - c) / delta + s A + r B1 - rs delta) G1")
+    log(f"# phase 11 host checks: up to {samples} samples of each of the six "
+        f"key queries, the six single key elements and A, B, C equal host ints "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+
+def _groth16_tampers(dev, res) -> None:
+    """The honest proof and three tampers in one `pairing_checks`."""
+    from legosnark_tpu_torch.curve import pairing as pr
+    from legosnark_tpu_torch.curve.group import G2, g2_generator
+    from legosnark_tpu_torch.gadgets import groth16
+
+    t0 = time.perf_counter()
+    vk, pf, public = res["vk"], res["pf"], res["public"]
+    bad = list(public)
+    bad[0] = (bad[0] + 1) % R
+    cases = {
+        "honest": groth16.verify_pairs(vk, public, pf),
+        "public output + 1": groth16.verify_pairs(vk, bad, pf),
+        "A and C swapped": groth16.verify_pairs(
+            vk, public, groth16.Proof(pf.c, pf.b, pf.a)),
+        "B + G2": groth16.verify_pairs(vk, public, groth16.Proof(
+            pf.a, G2.add(pf.b, g2_generator((), dev)), pf.c)),
+    }
+    verdicts = pr.pairing_checks([g for gs in cases.values()
+                                  for g in gs]).tolist()
+    for what, ok in zip(cases, verdicts):
+        log(f"# phase 11 verify '{what}': {ok}")
+        honest = what == "honest"
+        check(ok is honest, f"verify '{what}' is {honest}")
+    log(f"# phase 11 tampers: {time.perf_counter() - t0:.2f}s")
+
+
 #: name -> (source, the TPU kernel it replaces, on the main path?)
 KERNELS = {
     "mont_mul": ("legosnark_tpu_torch/csrc/mont_mul.cu",
@@ -1163,7 +1313,7 @@ KERNELS = {
 
 
 def main(argv) -> int:
-    phases = set(range(1, 11))
+    phases = set(range(1, 12))
     if "--phases" in argv:
         phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
     if 7 in phases and 5 not in phases:
@@ -1210,11 +1360,13 @@ def main(argv) -> int:
     had = timed(8, phase_hadamard, torch, np, dev, 14, kernels)
     link = timed(9, phase_cplink, torch, np, dev, 10, kernels)
     mac = timed(10, phase_matrixac, torch, np, dev, 8, kernels)
+    g16 = timed(11, phase_groth16, torch, np, dev, 64, kernels)
     paths = {"cpmmp_hv_1024": hv["launches"] if hv else {},
              "cpmmp_fs_1024": fs["launches"] if fs else {},
              "hadamard_2e14": had["launches"] if had else {},
              "cplink_2e10": link["launches"] if link else {},
-             "matrixac_8": mac["launches"] if mac else {}}
+             "matrixac_8": mac["launches"] if mac else {},
+             "groth16_64": g16["launches"] if g16 else {}}
     rows = []
     for name, (src, tpu, on_path) in KERNELS.items():
         st = stats.get(name, {})
@@ -1240,7 +1392,7 @@ def main(argv) -> int:
         summary.update({"fs_prove_s": round(fs["prove_s"], 3),
                         "fs_verify_s": round(fs["verify_s"], 3)})
     for name, res in (("hadamard_2e14", had), ("cplink_2e10", link),
-                      ("matrixac_8", mac)):
+                      ("matrixac_8", mac), ("groth16_64", g16)):
         if res:
             summary[name] = {k: round(v, 3) for k, v in res["times"].items()}
     log(f"# all phases {sorted(phases)} passed: {json.dumps(summary)}")

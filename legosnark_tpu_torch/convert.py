@@ -182,6 +182,25 @@ def acproof_from_jax(pf, device):
                    point_from_jax(pf.lin_pi, device))
 
 
+def groth16_pk_from_jax(pk, device):
+    """A JAX Groth16 `ProvingKey` -> the port's."""
+    from .gadgets.groth16 import ProvingKey
+    return ProvingKey(*(point_from_jax(getattr(pk, f), device)
+                        for f in ProvingKey._fields[:-1]), domain=pk.domain)
+
+
+def groth16_vk_from_jax(vk, device):
+    """A JAX Groth16 `VerifyKey` -> the port's."""
+    from .gadgets.groth16 import VerifyKey
+    return VerifyKey(*(point_from_jax(p, device) for p in vk))
+
+
+def groth16_proof_from_jax(pf, device):
+    """A JAX Groth16 `Proof` -> the port's."""
+    from .gadgets.groth16 import Proof
+    return Proof(*(point_from_jax(p, device) for p in pf))
+
+
 def to_ints(x, spec: FieldSpec = bn254.FR, g2: bool = False):
     """Canonical integers of port values: Montgomery limbs [..., 8, n] ->
     object array [..., n]; a `Point` -> flat list of affine (x, y), or

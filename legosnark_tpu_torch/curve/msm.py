@@ -124,6 +124,13 @@ def msm(C: CurveOps, points: Point, scalars, c: int | None = None,
     return acc
 
 
+def msm_mont(C: CurveOps, points: Point, scalars_mont, c: int | None = None,
+             fr_spec: fl.FieldSpec = bn254.FR) -> Point:
+    """`msm` for Montgomery-form Fr scalars (one conversion, then `msm`)."""
+    return msm(C, points, fl.from_mont(fr_spec, scalars_mont), c=c,
+               fr_spec=fr_spec)
+
+
 # ---------------------------------------------------------------------------
 # Fixed-base batched scalar multiplication (keygen path)
 # ---------------------------------------------------------------------------

@@ -322,6 +322,31 @@ def inv(spec: FieldSpec, a):
     return mont_pow(spec, a, spec.p - 2)
 
 
+def batch_inv_scan(spec: FieldSpec, a):
+    """Inverses over the vector (last) axis by Montgomery's trick, zeros
+    mapped to zero: prefix and suffix products by `curve.group.scan`
+    (log depth, about 4n products in 4 log2(n) batched calls), one
+    inversion of the total, then inv(a_i) = total^-1 * prefix_(i-1) *
+    suffix_(i+1) in two products of width n."""
+    from ..curve.group import scan
+
+    shape = a.shape[:-2] + a.shape[-1:]
+    zmask = is_zero(spec, a)
+    ones = one(spec, shape, a.device)
+    safe = select(zmask, ones, a)
+
+    def mul(x, y):
+        return (mont_mul(spec, x[0], y[0]),)
+
+    (pref,) = scan(mul, (safe,))
+    (suf,) = scan(mul, (safe,), reverse=True)
+    pref_m1 = torch.cat([ones[..., :1], pref[..., :-1]], dim=-1)
+    suf_p1 = torch.cat([suf[..., 1:], ones[..., :1]], dim=-1)
+    out = mont_mul(spec, inv(spec, pref[..., -1:]),
+                   mont_mul(spec, pref_m1, suf_p1))
+    return select(zmask, zero(spec, shape, a.device), out)
+
+
 def get_window(spec: FieldSpec, x, start_bit: int, width: int):
     """Bits [start_bit, start_bit + width) of canonical limbs as int64
     [..., V]. A window of up to 31 bits spans at most two 32-bit limbs

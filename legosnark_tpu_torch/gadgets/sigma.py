@@ -72,6 +72,13 @@ class ZKEqProof(NamedTuple):
     z: Any    # response k + e*(r0 - r1), Montgomery Fr
 
 
+def zkeq_prove(h: Point, r0, r1, k, e) -> ZKEqProof:
+    """k the prover's nonce, e the challenge: Montgomery Fr [8, 1], or
+    [8, d] for d independent proofs in one call."""
+    return ZKEqProof(_smul(h, k),
+                     FR_OPS.add(k, FR_OPS.mul(e, FR_OPS.sub(r0, r1))))
+
+
 def zkeq_verify(h: Point, c0: Point, c1: Point, pf: ZKEqProof, e):
     """z*H == a + e*(c0 - c1), batched over the vector axis -> bool [m]."""
     zh, ed = smul_many([(h, pf.z), (G1.add(c0, G1.neg(c1)), e)])

@@ -59,3 +59,11 @@ def rand_fr_limbs_fast(rng: np.random.Generator, n: int,
         if i + 1 < fl.NLIMBS:
             out[i + 1] |= v >> np.uint64(fl.LIMB_BITS)
     return out.astype(np.uint32).view(np.int32)
+
+
+def rand_fr_mont_fast(rng: np.random.Generator, n: int, device=None):
+    """[8, n] Montgomery-form pseudo-uniform Fr elements: the draws of
+    `rand_fr_limbs_fast` (the JAX package's for the same rng), converted
+    on the device by one Montgomery product."""
+    dev = resolve_device(device)
+    return fl.to_mont(bn254.FR, fl.tensor(rand_fr_limbs_fast(rng, n), dev))

@@ -14,15 +14,16 @@ from legosnark_tpu_torch.curve import bn254, cuda_group
 from legosnark_tpu_torch.curve import group as tg
 from legosnark_tpu_torch.examples import cplink
 from legosnark_tpu_torch.examples import hadamard as hadamard_example
-from legosnark_tpu_torch.examples import matrixac, matrixsc
+from legosnark_tpu_torch.examples import legogrothmatrix, matrixac, matrixsc
 from legosnark_tpu_torch.fields import cuda_limb
 from legosnark_tpu_torch.fields import limb as fl
 from legosnark_tpu_torch.gadgets import (  # noqa: F401
-    arithcirc, hadamard, lipmaa, matrix, poly, snark, subspace)
+    arithcirc, groth16, hadamard, lipmaa, matrix, poly, snark, subspace)
 from legosnark_tpu_torch.prototools import commit, ntt  # noqa: F401
+from legosnark_tpu_torch.prototools import polytools
 from legosnark_tpu_torch.probes import mont_variants
-from legosnark_tpu_torch.utils import (benchmark, rand, sparse,  # noqa: F401
-                                       transcript)
+from legosnark_tpu_torch.utils import (benchmark, bp_circuits,  # noqa: F401
+                                       dbg, rand, sparse, transcript, util)
 
 # The plain path runs many small torch ops; idle intra-op threads spin and
 # starve the other test processes, so the port's tests use one thread.
@@ -79,7 +80,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                 lipmaa.keygen_cached, hadamard_example.run,
                                 rand.rand_fr_canonical, commit.keygen,
                                 sparse.insert_as_col_major, arithcirc.keygen,
-                                cplink.run, matrixac.run])
+                                cplink.run, matrixac.run,
+                                legogrothmatrix.run, groth16.setup,
+                                rand.rand_fr_mont_fast, util.load_from_file,
+                                util.populate_from_file_dist,
+                                util.load_point_batch, polytools.zero,
+                                polytools.one, polytools.x,
+                                polytools.one_minus_x])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default is None
     assert config.resolve_device("cpu").type == "cpu"
