@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`legosnark_tpu_torch`) on one GPU.
 
 Phases, each printing its result and times on its own line:
-  1. start-up: versions, the card and its power limit, the kernel build;
+  1. start-up: versions, the card and its power limit, the kernel build
+     (fails if K2, K3 or P1b spill);
   2. kernels K1 (Montgomery product), K2 (G1 add) and K3 (G1 double,
      also with times = 4 and 17 doublings in one launch) against their
      plain PyTorch versions at 2^20 elements, bit for bit, with edge
@@ -23,7 +24,8 @@ Phases, each printing its result and times on its own line:
      their widths, and the launches and seconds of one more verify alone;
   6. the probes P1a (SOS product), P1b (tensor-core reduction) and P2
      (limb product, three variants) against their plain versions and K1
-     at 2^20, bit for bit, with their times beside K1's; the pairing on
+     at 2^20, bit for bit, with their times beside K1's and P1b's
+     registers and shared memory from ptxas's report; the pairing on
      the card: bilinearity e(aG1, bG2) = e(G1, G2)^(ab) at width 64 and
      e(G1, G2) equal to the CPU's;
   7. the Fiat-Shamir path at n = 1024 with phase 5's key and data: prove
@@ -93,11 +95,12 @@ IMUL_PER_MONT = 2 * (64 + 64) + 8
 #: over the whole 256-bit ninv, 36 word products of which 28 need their
 #: high word
 IMUL_PER_SOS = 2 * (64 + 64) + 36 + 28
-#: P1b on the CUDA cores: t = a*b only
-IMUL_PER_TC = 2 * 64
-#: P1b on the tensor cores: 6 mma.sync m16n8k32 tiles per 8 elements, 2
-#: operations per multiply-add, at the data sheet's dense int8 rate
-TC_OPS_PER_ELEM = 6 * 16 * 8 * 32 * 2 // 8
+#: P1b on the CUDA cores: t = a*b and the one byte product of column 62
+IMUL_PER_TC = 2 * 64 + 1
+#: P1b on the tensor cores: 4 mma.sync m16n8k32 tiles per 8 elements (two
+#: of N, two of P's rows 30..61), 2 operations per multiply-add, at the
+#: data sheet's dense int8 rate
+TC_OPS_PER_ELEM = 4 * 16 * 8 * 32 * 2 // 8
 INT8_TC_OPS_PER_S = 1979e12
 LIMB_BYTES = 32
 #: K3's `times` checked and timed at 2^20 (4: scalar multiplication's
@@ -242,9 +245,9 @@ def phase_startup(torch, kernels) -> dict:
         regs = [ln.strip() for ln in rec["log"].splitlines()
                 if "registers" in ln or "spill" in ln]
         log(f"# build {name}: {rec['seconds']:.1f}s; {'; '.join(regs)}")
-    if log_["g1.cu"]["seconds"]:   # a fresh build: ptxas's report is there
-        check(not re.search(r"[1-9][0-9]* bytes spill", log_["g1.cu"]["log"]),
-              "K2 and K3 build without spills")
+    for src, what in (("g1.cu", "K2 and K3"), ("mont_tc.cu", "P1b")):
+        check(not re.search(r"[1-9][0-9]* bytes spill", log_[src]["log"]),
+              f"{what} build without spills")
     log(f"# phase 1 ok: kernels built in {build_s:.1f}s")
     return {"smi": smi, "build_s": build_s}
 
@@ -667,6 +670,7 @@ def _tampers(torch, dev, res) -> None:
 
 def phase_probes(torch, np, dev) -> dict:
     """P1a, P1b and P2 at 2^20 against their plain versions and K1."""
+    from legosnark_tpu_torch import kernels
     from legosnark_tpu_torch.probes import mont_variants
 
     n = 1 << 20
@@ -693,6 +697,10 @@ def phase_probes(torch, np, dev) -> dict:
             f"{tb:.4f} ms ({by}); K1 {k1_ms:.4f} ms")
         check(st["max_abs_err"] == 0, f"{name} equals its plain version")
         check(st.get("k1_err", 0) == 0, f"{name} equals K1")
+    rec = kernels.build_log.get("mont_tc.cu", {})
+    use = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", rec.get("log", ""))
+    log("# phase 6 P1b ptxas: " + (f"{use[1]} registers, {use[2]} bytes of "
+        "shared memory per block" if use else "no ptxas report"))
     log(f"# phase 6 probes: P1b/K1 time ratio {res['mont_mul_tc']['ms'] / k1_ms:.3f}, "
         f"P1a/K1 {res['mont_mul_sos']['ms'] / k1_ms:.3f} "
         f"({time.perf_counter() - t0:.1f}s)")

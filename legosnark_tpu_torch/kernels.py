@@ -47,7 +47,8 @@ _SIGNATURES = {
     "lsk_limb_product": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
 }
 _libs: dict = {}
-#: source -> {"seconds": build time (0 when reused), "log": nvcc output}
+#: source -> {"seconds": build time (0 when reused), "log": nvcc output,
+#: ptxas's report included, also for a reused library}
 build_log: dict = {}
 
 
@@ -86,8 +87,10 @@ def build() -> dict:
     for name in SOURCES:
         src = CSRC / name
         lib = BUILD_DIR / f"lib{src.stem}_{_digest(src)}.so"
-        if lib.exists():
-            build_log[name] = {"seconds": 0.0, "log": "reused " + lib.name}
+        if lib.exists():   # the nvcc output was kept beside it
+            saved = lib.with_name(lib.name + ".log")
+            build_log[name] = {"seconds": 0.0, "log": saved.read_text()
+                               if saved.exists() else "reused " + lib.name}
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -101,6 +104,7 @@ def build() -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             continue
+        lib.with_name(lib.name + ".log").write_text(out)
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))

@@ -107,20 +107,91 @@ def _wide_halves(a, b):
     return fl.exact(fl.pad_top(t), 16, 3)                     # cols < 2^36
 
 
+#: P1b's tile of P: its rows 30..61 (table rows 62..93), columns 30..61 of
+#: m*p; column 62 is m_31 * p_31 and column 63 is 0 (`csrc/mont_tc.cu`)
+TC_P_ROW0 = 32 + 30
+
+
+def tc_digit_word(e, w):
+    """Word of digit word w (0..7) of a warp's element e (0..31) in P1b's
+    digit buffer (`dig_word` in `csrc/mont_tc.cu`); ints or numpy arrays."""
+    return 8 * e + (w ^ (e & 4))
+
+
+def tc_pair_word(e, q):
+    """Word of pair word q (0..15) of a warp's element e (0..31) in P1b's
+    pair buffer (`pair_word` in `csrc/mont_tc.cu`); ints or numpy arrays."""
+    line = (e & 1) | ((q >> 3) << 1) | ((e >> 3) << 2)
+    bank = (q & 3) | (((e ^ (q >> 2)) & 1) << 2) | (((e >> 1) & 3) << 3)
+    return 32 * line + bank
+
+
+def tc_tile_slot(mt: int, r: int) -> int:
+    """Slot of row r (0..15) of P1b's constant tile mt (0, 1): lane g's rows
+    g, g + 8 of tiles 0, 1 are slots 4g..4g+3, one slot group."""
+    return 4 * (r % 8) + 2 * mt + r // 8
+
+
+def tc_slot_row(tile: int, s: int) -> int:
+    """`toeplitz_bytes` row of slot s of tile 0, 1 (N: column s) or 2, 3
+    (P: column 32 + s for s < 30, s for s = 30, 31; slot (k - 32) mod 32
+    holds column k)."""
+    if tile < 2:
+        return s
+    return 32 + (32 + s if s < 30 else s)
+
+
+@functools.lru_cache(None)
+def tc_fragments(p: int) -> np.ndarray:
+    """P1b's constant operand in register order: word 128 tile + 4 lane + i
+    is A-fragment register a_i of lane (g, t) = (lane // 4, lane % 4) for
+    tiles 0, 1 (N) and 2, 3 (P): bytes 4t.. (a0, a1) and 16 + 4t.. (a2,
+    a3) of tile rows g (a0, a2) and g + 8 (a1, a3). Word 512 is p_byte[31]
+    (column 62 of m*p is m_31 * p_31); 516 words in all."""
+    T = toeplitz_bytes(p)
+    out = np.zeros(4 * 32 * 4 + 4, dtype=np.uint32)
+    for tile in range(4):
+        rows = [tc_slot_row(tile, tc_tile_slot(tile % 2, r))
+                for r in range(16)]
+        w = np.ascontiguousarray(T[rows]).view("<u4")        # [16, 8] words
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            out[128 * tile + 4 * lane:][:4] = [w[g, t], w[g + 8, t],
+                                               w[g, 4 + t], w[g + 8, 4 + t]]
+    out[512] = p.to_bytes(32, "little")[31]
+    return out
+
+
+@functools.lru_cache(None)
+def _fragments(p: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(tc_fragments(p).view(np.int32)).to(device)
+
+
 def mont_mul_tc_plain(spec: FieldSpec, a, b):
     """The tensor-core product's decomposition step by step: t = a*b, its
     low 32 bytes against N (column sums), carries to m mod R, m's bytes
-    against P, t + those columns with carries, the high 32 bytes. The
-    contractions run in float64, exact as every sum stays below 2^21 (the
-    card's torch.matmul has no int64 kernel); the rest in int64."""
+    against P's rows 30..61 (columns 30..61 of m*p) and column 62 =
+    m_31 * p_31, the carry out of the low half as ceil((t_lo + col_30
+    2^240 + col_31 2^248) / 2^256), then t_hi + columns 32..62 + that carry
+    with carries. The contractions run in float64, exact as every sum stays
+    below 2^21 (the card's torch.matmul has no int64 kernel); the rest in
+    int64."""
     a, b = torch.broadcast_tensors(a, b)
     T = _toeplitz(spec.p, a.device).to(torch.float64)
     t = _bytes(_wide_halves(a, b))                            # [..., 64, V]
     m_cols = torch.matmul(T[:32], t[..., :32, :].to(torch.float64))
     m = fl.exact(m_cols.to(torch.int64), 8, 3)                # m mod 2^256
-    u_cols = torch.matmul(T[32:], m.to(torch.float64)).to(torch.int64)
-    u = fl.exact(t + u_cols, 8, 3)                            # u mod 2^512
-    return _words(u[..., 32:, :], 8)
+    u_cols = torch.matmul(T[TC_P_ROW0:TC_P_ROW0 + 32],
+                          m.to(torch.float64)).to(torch.int64)  # cols 30..61
+    col62 = m[..., 31:, :] * int(T[TC_P_ROW0 + 32, 31])
+    top = sum(t[..., 28 + q, :] << (8 * q) for q in range(4)) \
+        + (u_cols[..., 0, :] << 16) + (u_cols[..., 1, :] << 24)  # word 7
+    rest = ((top & fl.MASK) != 0) | (t[..., :28, :] != 0).any(dim=-2)
+    carry = (top >> 32) + rest.to(torch.int64)
+    hi = t[..., 32:, :] + torch.cat(
+        [u_cols[..., 2:, :], col62, torch.zeros_like(col62)], dim=-2)
+    hi[..., 0, :] += carry
+    return _words(fl.exact(hi, 8, 3), 8)                      # u / R
 
 
 def limb_product_plain(a, b, variant: str):
@@ -197,10 +268,10 @@ def mont_mul_tc(spec: FieldSpec, a, b):
     total = a.numel() // fl.NLIMBS
     if total == 0:
         return out
-    toep = _toeplitz(spec.p, a.device)
+    frag = _fragments(spec.p, a.device)
     fn = kernels.function("mont_tc.cu", "lsk_mont_mul_tc")
     err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[-1], total,
-             toep.data_ptr(), _stream(a))
+             frag.data_ptr(), _stream(a))
     kernels.check("mont_tc.cu", err, "mont_mul_tc")
     kernels.count("mont_mul_tc", total)
     return out

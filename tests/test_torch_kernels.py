@@ -119,6 +119,29 @@ def test_p1_equals_plain_and_k1(cuda, spec):
     assert torch.equal(sos, k1) and torch.equal(tc, k1)
 
 
+@pytest.mark.parametrize("shape", [(8, 1), (8, 15), (8, 17), (8, 33),
+                                   (8, (1 << 10) + 5), (3, 8, 37)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("spec", [bn254.FR, bn254.FQ], ids=["Fr", "Fq"])
+def test_p1b_ragged_and_batched(cuda, spec, shape):
+    """P1b at widths that leave a warp or a block part full, and on a
+    batch: every lane takes part in each mma, only valid ones load and
+    store."""
+    gen = torch.Generator().manual_seed(4)
+    p = spec.p
+    count = (shape[0] if len(shape) == 3 else 1) * shape[-1]
+    xs = (edge_ints(p) + _rand(gen, count, 2 * p))[:count]
+    ys = (edge_ints(p)[::-1] + _rand(gen, count, 2 * p))[:count]
+    a, b = (fl.tensor(fl.ints_to_limbs(v), cuda).view(8, -1, shape[-1])
+            .transpose(0, 1).reshape(shape).contiguous() for v in (xs, ys))
+    kernels.reset_launches()
+    tc = mv.mont_mul_tc(spec, a, b)
+    torch.cuda.synchronize()
+    assert kernels.launches["mont_mul_tc"] == 1 and tc.shape == a.shape
+    assert torch.equal(tc, mv.mont_mul_tc_plain(spec, a, b))
+    assert torch.equal(tc, cuda_limb.mont_mul(spec, a, b))
+
+
 @pytest.mark.parametrize("variant", mv.VARIANTS)
 def test_p2_equals_plain(cuda, variant):
     gen = torch.Generator().manual_seed(3)
