@@ -62,13 +62,26 @@ Phases, each printing its result and times on its own line:
      scalars times G1 or G2 (the trapdoor and r, s drawn again from the
      seeds, the QAP values from host Lagrange values); the honest proof
      and three tampers (a public output + 1, A and C swapped, B + G2) in
-     one `pairing_checks`, only the honest one true.
+     one `pairing_checks`, only the honest one true;
+ 12. the sharded layer (`parallel/sharded`, driven by `parallel/dryrun`)
+     at the main path's widths: `msm_sharded` over 2^20 distinct points
+     k_i*G at c = 17 (and 256 points (i + 1)*G2), `field_sum_sharded` and
+     `fold_sharded` at 2^20, `sumcheck_rounds_sharded` at d = 20 with k = 2
+     and 3 tables, `cpmat_rounds_sharded` at n = 1024 and `ntt_sharded` at
+     2^18 forward and inverse; each on two worlds started by
+     `parallel/launch`: 12a NCCL over min(4, cards) cards, one rank each
+     (a world of one on one card), 12b gloo with 4 ranks on card 0 (real
+     cross-rank traffic through the host). Every output, reassembled,
+     equals the local engine on the card, and the MSMs host-int trapdoors;
+     every rank launches K1 and every MSM rank K2 and K3. Per function and
+     world: seconds, the slowest rank's, launches per kernel and the
+     collective bytes received.
 Each phase's seconds follow it on a line of their own. Then a `kernels`
 JSON line (with `ms_by_width` for K2 and K3), the
 `nvidia-smi` name and power limit line, and as the last line
 {"ok": true, "device": {...}}.
 
-Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11]   (7 needs 5)
+Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12]   (7 needs 5)
 Needs one CUDA card; exits non-zero without one, or when any check fails.
 """
 from __future__ import annotations
@@ -1299,6 +1312,72 @@ def _groth16_tampers(dev, res) -> None:
     log(f"# phase 11 tampers: {time.perf_counter() - t0:.2f}s")
 
 
+def phase_sharded(torch, np, dev, sizes, worlds: dict) -> dict:
+    """The sharded layer (`parallel/dryrun`) at `sizes` on each world of
+    `worlds` (path -> (devices, backend)): every output equal to the
+    local engine on `dev`, the MSMs also to host-int trapdoors, K1 on
+    every rank and K2, K3 on every MSM rank."""
+    from legosnark_tpu_torch.curve.group import g1_to_ints, g2_to_ints
+    from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.parallel import dryrun
+
+    seed = 12
+    t0 = time.perf_counter()
+    ref = dryrun.reference(sizes, seed, dev)
+    _sync(torch, dev)
+    ref_s = time.perf_counter() - t0
+    inp = dryrun.make_inputs(sizes, seed)
+    ks, ss = fl.limbs_to_ints(inp["msm_k"]), fl.limbs_to_ints(inp["msm_s"])
+    e = sum(int(k) * int(s) for k, s in zip(ks, ss)) % R
+    check(g1_to_ints(ref["msm_g1"]) == [aff_mul(G, e)],
+          "local G1 MSM equals the host trapdoor")
+    e2 = sum((i + 1) * int(s)
+             for i, s in enumerate(fl.limbs_to_ints(inp["g2_s"]))) % R
+    check(g2_to_ints(ref["msm_g2"]) == [aff2_mul(G2_GEN, e2)],
+          "local G2 MSM equals the host trapdoor")
+    log(f"# phase 12 sizes {json.dumps(sizes._asdict())}: local engine "
+        f"{ref_s:.1f}s, its MSMs equal the host trapdoors")
+    launches, times = {}, {}
+    for path, (devices, backend) in worlds.items():
+        t0 = time.perf_counter()
+        _, ranks = dryrun.run_world(devices, backend, sizes, seed, ref)
+        world_s = time.perf_counter() - t0
+        log(f"# phase 12 {path}: backend {backend}, {len(devices)} ranks on "
+            f"{','.join(devices)}, {world_s:.1f}s with start-up; every "
+            f"output equals the local engine")
+        for r, rk in enumerate(ranks):
+            per = rk["stats"]
+            k1 = sum(st["launches"].get("mont_mul", 0) for st in per.values())
+            check(k1 > 0, f"{path} rank {r} launched K1")
+            for kern in ("g1_add", "g1_double"):
+                check(per["msm_sharded_g1"]["launches"].get(kern, 0) > 0,
+                      f"{path} rank {r} launched {kern} in its MSM")
+        summ = dryrun.summary(ranks)
+        total: dict = {}
+        for name, st in summ.items():
+            log(f"# phase 12 {path} {name}: {st['seconds']:.4f} s, slowest "
+                f"rank {st['slowest_s']:.4f} s, launches "
+                f"{json.dumps(st['launches'])}, collective bytes "
+                f"{st['collective_bytes']}")
+            for k, v in st["launches"].items():
+                total[k] = total.get(k, 0) + v
+        launches[path] = total
+        times[path] = {name: round(st["slowest_s"], 4)
+                       for name, st in summ.items()}
+        times[path]["world_s"] = round(world_s, 1)
+    log(f"# phase 12 ok: {', '.join(worlds)} equal the local engine and the "
+        f"host trapdoors; K1 on every rank, K2 and K3 in every rank's MSM")
+    return {"launches": launches, "times": times}
+
+
+def sharded_worlds(torch) -> dict:
+    """Phase 12's worlds: NCCL over min(4, cards) cards, one rank each,
+    and gloo with 4 ranks on card 0 (NCCL refuses two ranks on a card)."""
+    w = min(4, torch.cuda.device_count())
+    return {f"sharded_w{w}_nccl": ([f"cuda:{r}" for r in range(w)], "nccl"),
+            "sharded_w4_gloo": (["cuda:0"] * 4, "gloo")}
+
+
 #: name -> (source, the TPU kernel it replaces, on the main path?)
 KERNELS = {
     "mont_mul": ("legosnark_tpu_torch/csrc/mont_mul.cu",
@@ -1321,7 +1400,7 @@ KERNELS = {
 
 
 def main(argv) -> int:
-    phases = set(range(1, 12))
+    phases = set(range(1, 13))
     if "--phases" in argv:
         phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
     if 7 in phases and 5 not in phases:
@@ -1339,6 +1418,7 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     try:
         from legosnark_tpu_torch import kernels
+        from legosnark_tpu_torch.parallel import dryrun
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
@@ -1369,12 +1449,15 @@ def main(argv) -> int:
     link = timed(9, phase_cplink, torch, np, dev, 10, kernels)
     mac = timed(10, phase_matrixac, torch, np, dev, 8, kernels)
     g16 = timed(11, phase_groth16, torch, np, dev, 64, kernels)
+    worlds = sharded_worlds(torch)
+    shd = timed(12, phase_sharded, torch, np, dev, dryrun.FULL, worlds)
     paths = {"cpmmp_hv_1024": hv["launches"] if hv else {},
              "cpmmp_fs_1024": fs["launches"] if fs else {},
              "hadamard_2e14": had["launches"] if had else {},
              "cplink_2e10": link["launches"] if link else {},
              "matrixac_8": mac["launches"] if mac else {},
              "groth16_64": g16["launches"] if g16 else {}}
+    paths.update({p: shd["launches"][p] if shd else {} for p in worlds})
     rows = []
     for name, (src, tpu, on_path) in KERNELS.items():
         st = stats.get(name, {})
@@ -1403,6 +1486,8 @@ def main(argv) -> int:
                       ("matrixac_8", mac), ("groth16_64", g16)):
         if res:
             summary[name] = {k: round(v, 3) for k, v in res["times"].items()}
+    if shd:
+        summary.update(shd["times"])
     log(f"# all phases {sorted(phases)} passed: {json.dumps(summary)}")
     print(json.dumps({"kernels": rows}))
     print(start["smi"])

@@ -17,6 +17,7 @@ from legosnark_tpu_torch.examples import hadamard as hadamard_example
 from legosnark_tpu_torch.examples import legogrothmatrix, matrixac, matrixsc
 from legosnark_tpu_torch.fields import cuda_limb
 from legosnark_tpu_torch.fields import limb as fl
+from legosnark_tpu_torch.parallel import dryrun, launch, sharded  # noqa: F401
 from legosnark_tpu_torch.gadgets import (  # noqa: F401
     arithcirc, groth16, hadamard, lipmaa, matrix, poly, snark, subspace)
 from legosnark_tpu_torch.prototools import commit, ntt  # noqa: F401
@@ -59,6 +60,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         PKG.parent / "scripts" / "sweep_g1_threads.py",
         PKG.parent / "scripts" / "time_verify_torch.py"]
     assert len(files) > 15
+    assert PKG / "parallel" / "sharded.py" in files
     bad = []
     for f in files:
         for name in _imported_modules(ast.parse(f.read_text())):
@@ -97,6 +99,15 @@ def test_entry_points_default_to_cuda(fn):
             fn(*([2] * _n_required(fn)))
     else:
         assert config.resolve_device(None).type == "cuda"
+
+
+def test_dryrun_cli_runs_on_the_card_unless_told_cpu():
+    """Without --cpu the dry run takes NCCL over W cards; with no card it
+    raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["2"])
 
 
 def _n_required(fn):
