@@ -76,12 +76,26 @@ Phases, each printing its result and times on its own line:
      every rank launches K1 and every MSM rank K2 and K3. Per function and
      world: seconds, the slowest rank's, launches per kernel and the
      collective bytes received.
+ 13. the benchmark entry points (`bench`, `bench_gadgets`), each sub-phase
+     a path with its own launch counts and widths: 13a `bench.run_msm` at
+     2^18 and 2^20 with c = 16, each output equal to its host trapdoor,
+     and the bench's lines; 13b `bench_cppoly(20)` with a fresh SRS
+     directory (keygen a miss): C, Ca, the answer and all 20 witnesses
+     equal host-int scalars times G (v, r, s and alpha drawn again from
+     the seeds), a second `keygen_cached` a hit with the same key, and
+     three tampers (two witnesses swapped, the answer commitment of
+     ans + 1, C and Ca swapped) verify false; 13c `bench_cpsc(16)`: z0,
+     z0_comm, every round's h_comms and the finals from host ints, verify
+     true, three tampers (two round commitments swapped, a final changed,
+     z0_comm of z0 + 1) false; 13d `bench_gadgets.main` with the other
+     selectors (cplink, cphad, cpmmp) at scale 1 on 13b's SRS directory
+     (cpmmp_1024x1024 a hit on cppoly_20var's file), every verdict row ok.
 Each phase's seconds follow it on a line of their own. Then a `kernels`
 JSON line (with `ms_by_width` for K2 and K3), the
 `nvidia-smi` name and power limit line, and as the last line
 {"ok": true, "device": {...}}.
 
-Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12]   (7 needs 5)
+Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13]   (7 needs 5)
 Needs one CUDA card; exits non-zero without one, or when any check fails.
 """
 from __future__ import annotations
@@ -123,6 +137,12 @@ DOUBLE_TIMES = (4, 17)
 NARROW_WIDTHS = (1, 2, 32, 1 << 10)
 #: the main path's kernels, whose launches phases 5 and 7 count
 MAIN_KERNELS = ("mont_mul", "g1_add", "g1_double")
+#: phase 13's paths, in the order it drives them
+BENCH_PATHS = ("bench_msm_c16", "cppoly_20var", "cpsc_16var",
+               "bench_gadgets_rest")
+#: the selectors 13d drives through `bench_gadgets.main` (13b and 13c hold
+#: cppoly and cpsc at full width)
+BENCH_REST = ("cplink", "cphad", "cpmmp")
 
 
 def log(msg: str) -> None:
@@ -1378,6 +1398,234 @@ def sharded_worlds(torch) -> dict:
             "sharded_w4_gloo": (["cuda:0"] * 4, "gloo")}
 
 
+def phase_bench(torch, np, dev, kernels) -> dict:
+    """The benchmark entry points on the card: 13a the MSM bench at 2^18
+    and 2^20 with c = 16, 13b `bench_cppoly(20)`, 13c `bench_cpsc(16)`,
+    13d `bench_gadgets.main` with the other selectors at scale 1. Each is
+    a path of its own: launch counts set to 0 before it and read after."""
+    import tempfile
+    from fractions import Fraction
+
+    from legosnark_tpu_torch import bench, bench_gadgets as bg
+    from legosnark_tpu_torch.curve.group import g1_to_ints
+
+    launches, summary = {}, {}
+
+    def drive(path, fn, *args):
+        _sync(torch, dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync(torch, dev)
+        launches[path] = dict(kernels.launches)
+        log(f"# phase 13 {path}: {time.perf_counter() - t0:.1f}s, launches "
+            f"{json.dumps(launches[path])}, widths "
+            f"{json.dumps(_widths(kernels))}")
+        for name in MAIN_KERNELS:
+            check(launches[path].get(name, 0) > 0,
+                  f"{name} launched on the {path} path")
+        return out
+
+    msms = drive("bench_msm_c16", lambda: {
+        log_n: bench.run_msm(log_n, 16, 3, dev) for log_n in (18, 20)})
+    for log_n, res in msms.items():
+        e = sum(k * s for k, s in zip(res["k"], res["s"])) % R
+        check(g1_to_ints(res["out"]) == [aff_mul(G, e)],
+              f"MSM 2^{log_n} c=16 trapdoor check")
+        line = bench.size_line(log_n, res)
+        summary[f"msm_2e{log_n}_c16"] = line
+        log(f"# phase 13a {json.dumps(line)}")
+    log(f"# phase 13a {json.dumps(bench.headline(msms))}")
+    log("# phase 13a ok: both MSMs at c = 16 meet their trapdoors")
+
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as cache:
+        rows = bg.Rows()
+        res = drive("cppoly_20var", bg.bench_cppoly, 20, dev, cache, rows)
+        summary["cppoly_20var"] = rows.rows
+        check(rows.rows[0]["srs_cache_hit"] is False,
+              "the first keygen misses the fresh SRS cache")
+        check(res["ok"], "CPpoly over 20 variables verifies")
+        _cppoly_host_checks(np, 20, res)
+        _cppoly_cache_round_trip(torch, dev, 20, cache, res["key"])
+        _cppoly_tampers(dev, res)
+        log("# phase 13b ok: cppoly_20var agrees with host ints and the "
+            "rebuilt s, alpha; the SRS cache round trip holds; three "
+            "tampers fail")
+
+        rows = bg.Rows()
+        res = drive("cpsc_16var", bg.bench_cpsc, 16, dev, cache, rows)
+        summary["cpsc_16var"] = rows.rows
+        check(res["ok"], "CPsc over 16 variables verifies")
+        _cpsc_host_checks(np, 16, res)
+        _cpsc_tampers(dev, res)
+        log("# phase 13c ok: cpsc_16var agrees with host ints and rejects "
+            "three tampers")
+
+        out = os.path.join(cache, "rows.json")
+        drive("bench_gadgets_rest", bg.main, [
+            *BENCH_REST, "--out", out, "--srs-cache", cache])
+        with open(out) as fh:
+            rows = json.load(fh)
+    names = bg.config_names(BENCH_REST, Fraction(1))
+    check({r["config"] for r in rows} == names,
+          f"the scale 1 run emits {sorted(names)}")
+    for name in names:
+        ok = [r["ok"] for r in rows if r["config"] == name and "ok" in r]
+        check(ok == [True], f"{name}: its verdict row shows ok true")
+    hit = [r["srs_cache_hit"] for r in rows
+           if r["config"] == "cpmmp_1024x1024" and r["phase"] == "keygen"]
+    check(hit == [True], "cpmmp_1024x1024's keygen hits cppoly_20var's SRS")
+    log(f"# phase 13d ok: {len(rows)} rows of {len(names)} configurations "
+        f"at scale 1, every verdict true, cpmmp's keygen a cache hit")
+    return {"launches": launches, "summary": summary}
+
+
+def _cppoly_host_checks(np, d: int, res) -> None:
+    """CPpoly from host ints: v and r drawn again from the bench's seed 3,
+    s and alpha from keygen's seed 1 ^ 0x9057. C = v~(s) G, Ca = alpha C,
+    the answer v~(r), and each witness W_i = q_i~(s_{i+1..}) G with q_i
+    the quotient hi - lo of v folded at r_0..r_{i-1}, Wa_i = alpha W_i."""
+    from legosnark_tpu_torch.curve.group import g1_to_ints
+    from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.utils import rand as lrand
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(3)
+    v = [int(x) for x in fl.limbs_to_ints(lrand.rand_fr_limbs_fast(rng, 1 << d))]
+    r = lrand.rand_fr_ints(rng, d)
+    check(_ints(res["r"]) == r, "the opening point drawn again")
+    rng = np.random.default_rng(1 ^ 0x9057)
+    s, alpha = lrand.rand_fr_ints(rng, d), lrand.rand_fr_int(rng)
+    c = g1_to_ints(res["comm"].c)[0]
+    check(c == aff_mul(G, mle_fold(v, s)[0]), "C = v~(s) G")
+    check(g1_to_ints(res["comm"].ca)[0] == aff_mul(c, alpha), "Ca = alpha C")
+    pf = res["proof"]
+    w, wa = g1_to_ints(pf.witness), g1_to_ints(pf.witnessa)
+    for i in range(d):
+        h = len(v) // 2
+        q = [(hi - lo) % R for lo, hi in zip(v[:h], v[h:])]
+        check(w[i] == aff_mul(G, mle_fold(q, s[i + 1:])[0]),
+              f"W_{i} = q_{i}~(s_{i + 1}..) G")
+        check(wa[i] == aff_mul(w[i], alpha), f"Wa_{i} = alpha W_{i}")
+        v = mle_fold(v, r[i : i + 1])
+    check(_ints(res["ans"]) == v, "the answer is v~(r)")
+    check(g1_to_ints(res["ans_comm"]) == [aff_mul(G, v[0])],
+          "the answer commitment is v~(r) G")
+    log(f"# phase 13b host checks: C, Ca, v~(r) and all {d} witnesses "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+
+def _cppoly_cache_round_trip(torch, dev, d: int, cache, key) -> None:
+    """A second `keygen_cached` finds the file and loads the same key."""
+    from legosnark_tpu_torch.gadgets import poly as cppoly
+
+    check(cppoly.srs_path(d, 1, cache).exists(), "the SRS file was written")
+    t0 = time.perf_counter()
+    again = cppoly.keygen_cached(d, 1, cache, dev)
+    _sync(torch, dev)
+    load_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for p, q in zip(
+        key.bases + key.bases_a + (key.g2_s, key.g2_alpha, key.g1, key.g2),
+        again.bases + again.bases_a + (again.g2_s, again.g2_alpha, again.g1,
+                                       again.g2))
+        for a, b in zip(p, q))
+    check(same, "the cached key equals the built one")
+    size = os.path.getsize(cppoly.srs_path(d, 1, cache))
+    log(f"# phase 13b SRS cache: hit, {size} bytes, loaded in {load_s:.2f}s, "
+        f"equal to the built key")
+
+
+def _cppoly_tampers(dev, res) -> None:
+    from legosnark_tpu_torch.curve import bn254
+    from legosnark_tpu_torch.curve.group import G1, point_map
+    from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.gadgets import poly as cppoly
+
+    key, cm, pf, r = res["key"], res["comm"], res["proof"], res["r"]
+    d = pf.witness.x.shape[-1]
+    order = [1, 0] + list(range(2, d))
+    ans1 = fl.add(bn254.FR, res["ans"], fl.one(bn254.FR, (), dev))
+    cases = {
+        "W_0 and W_1 swapped": (cm, res["ans_comm"], pf._replace(
+            witness=point_map(lambda x: x[..., order], pf.witness))),
+        "answer commitment of ans + 1": (cm, G1.scalar_mul(
+            key.g1, fl.from_mont(bn254.FR, ans1)), pf),
+        "C and Ca swapped": (cppoly.PolyComm(cm.ca, cm.c), res["ans_comm"], pf),
+    }
+    for what, (c, ac, p) in cases.items():
+        t0 = time.perf_counter()
+        ok = bool(cppoly.check_commit(key, c) & cppoly.verify(key, c, ac, r, p))
+        log(f"# phase 13b tamper '{what}': verify {ok} "
+            f"({time.perf_counter() - t0:.2f}s)")
+        check(not ok, f"tampered CPpoly opening ({what}) verifies false")
+
+
+def _cpsc_host_checks(np, d: int, res) -> None:
+    """CPsc from host ints: a, b and the challenges drawn again from the
+    bench's seed 7 + d. z0 = sum a_i b_i, z0_comm = z0 G, each round's
+    h_comms its round polynomial's coefficients times G, the finals
+    a~(r) and b~(r)."""
+    from legosnark_tpu_torch.curve.group import Point, g1_to_ints
+    from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.utils import rand as lrand
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7 + d)
+    a, b = ([int(x) for x in fl.limbs_to_ints(
+        lrand.rand_fr_limbs_fast(rng, 1 << d))] for _ in range(2))
+    for k in (d, 5, d, 1):                 # eq_k, prd_b, eq_e, prd_e
+        lrand.rand_fr_ints(rng, k)
+    chal = lrand.rand_fr_ints(rng, d)
+    check(_ints(res["chal"]) == chal, "the round challenges drawn again")
+    z0 = sum(x * y for x, y in zip(a, b)) % R
+    check(_ints(res["z0"]) == [z0], "z0 = sum a_i b_i")
+    check(g1_to_ints(res["z0_comm"]) == [aff_mul(G, z0)], "z0_comm = z0 G")
+    pf = res["proof"]
+    for i in range(d):
+        h = len(a) // 2
+        da = [(y - x) % R for x, y in zip(a[:h], a[h:])]
+        db = [(y - x) % R for x, y in zip(b[:h], b[h:])]
+        coeffs = (sum(x * y for x, y in zip(a[:h], b[:h])),
+                  sum(x * y + u * w for x, y, u, w in zip(a[:h], db, da, b[:h])),
+                  sum(x * y for x, y in zip(da, db)))
+        check(g1_to_ints(Point(*(t[i] for t in pf.h_comms)))
+              == [aff_mul(G, c) for c in coeffs],
+              f"round {i}: h_comms = h_{i}'s coefficients times G")
+        a, b = mle_fold(a, chal[i : i + 1]), mle_fold(b, chal[i : i + 1])
+    check(_ints(pf.finals) == a + b, "the finals are a~(r) and b~(r)")
+    log(f"# phase 13c host checks: z0, z0_comm, all {d} rounds' h_comms and "
+        f"the finals ({time.perf_counter() - t0:.1f}s)")
+
+
+def _cpsc_tampers(dev, res) -> None:
+    from legosnark_tpu_torch.curve import bn254
+    from legosnark_tpu_torch.curve.group import point_map
+    from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.gadgets import sumcheck as cpsc
+
+    key, pf = res["key"], res["proof"]
+    one = fl.one(bn254.FR, (), dev)
+    order = [1, 0] + list(range(2, pf.h_comms.x.shape[0]))
+    finals = pf.finals.clone()
+    finals[..., :1] = fl.add(bn254.FR, finals[..., :1], one)
+    cases = {
+        "round commitments 0 and 1 swapped": (res["z0_comm"], pf._replace(
+            h_comms=point_map(lambda x: x[order], pf.h_comms))),
+        "a final changed": (res["z0_comm"], pf._replace(finals=finals)),
+        "z0_comm of z0 + 1": (cpsc.commit_scalar(
+            key.g1, fl.add(bn254.FR, res["z0"], one)), pf),
+    }
+    for what, (zc, p) in cases.items():
+        t0 = time.perf_counter()
+        ok = bool(cpsc.verify(key, zc, res["comms"], p, lambda r: (r, r),
+                              rand=res["hv"]))
+        log(f"# phase 13c tamper '{what}': verify {ok} "
+            f"({time.perf_counter() - t0:.2f}s)")
+        check(not ok, f"tampered CPsc proof ({what}) verifies false")
+
+
 #: name -> (source, the TPU kernel it replaces, on the main path?)
 KERNELS = {
     "mont_mul": ("legosnark_tpu_torch/csrc/mont_mul.cu",
@@ -1400,7 +1648,7 @@ KERNELS = {
 
 
 def main(argv) -> int:
-    phases = set(range(1, 13))
+    phases = set(range(1, 14))
     if "--phases" in argv:
         phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
     if 7 in phases and 5 not in phases:
@@ -1451,6 +1699,7 @@ def main(argv) -> int:
     g16 = timed(11, phase_groth16, torch, np, dev, 64, kernels)
     worlds = sharded_worlds(torch)
     shd = timed(12, phase_sharded, torch, np, dev, dryrun.FULL, worlds)
+    bnc = timed(13, phase_bench, torch, np, dev, kernels)
     paths = {"cpmmp_hv_1024": hv["launches"] if hv else {},
              "cpmmp_fs_1024": fs["launches"] if fs else {},
              "hadamard_2e14": had["launches"] if had else {},
@@ -1458,6 +1707,8 @@ def main(argv) -> int:
              "matrixac_8": mac["launches"] if mac else {},
              "groth16_64": g16["launches"] if g16 else {}}
     paths.update({p: shd["launches"][p] if shd else {} for p in worlds})
+    paths.update({p: bnc["launches"].get(p, {}) if bnc else {}
+                  for p in BENCH_PATHS})
     rows = []
     for name, (src, tpu, on_path) in KERNELS.items():
         st = stats.get(name, {})
@@ -1488,6 +1739,8 @@ def main(argv) -> int:
             summary[name] = {k: round(v, 3) for k, v in res["times"].items()}
     if shd:
         summary.update(shd["times"])
+    if bnc:
+        summary.update(bnc["summary"])
     log(f"# all phases {sorted(phases)} passed: {json.dumps(summary)}")
     print(json.dumps({"kernels": rows}))
     print(start["smi"])

@@ -61,6 +61,25 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def make_data(rng, n: int, device):
+    """A, B and C = A*B as [n, 8, n] Montgomery matrices, in the JAX
+    example's draws, and the seconds of C = A*B on the device (None where
+    host ints computed C)."""
+    if n < _DEVICE_DATA_MIN_N:
+        Am, A = rand_fr_mat(rng, n, device)
+        Bm, B = rand_fr_mat(rng, n, device)
+        C = matmul_mod(A, B)
+        return Am, Bm, fl.tensor(np.stack([FR.to_mont_ints(row) for row in C]),
+                                 device), None
+    Am = rand_fr_mat_fast(rng, n, device)
+    Bm = rand_fr_mat_fast(rng, n, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    Cm = mle.matmul_mont(Am, Bm)
+    _sync(device)
+    return Am, Bm, Cm, time.perf_counter() - t0
+
+
 def run(d: int, device=None, fs: bool = True) -> dict:
     """CPmmp at n = 2^d, Fiat-Shamir unless fs=False; returns inputs, key,
     commitments, proof, the challenges, `ok`, `proof_size` (group and
@@ -72,20 +91,10 @@ def run(d: int, device=None, fs: bool = True) -> dict:
     times = {}
 
     t0 = time.perf_counter()
-    if n >= _DEVICE_DATA_MIN_N:
-        Am = rand_fr_mat_fast(rng, n, dev)
-        Bm = rand_fr_mat_fast(rng, n, dev)
-        _sync(dev)
-        t1 = time.perf_counter()
-        Cm = mle.matmul_mont(Am, Bm)
-        _sync(dev)
-        times["matmul_s"] = time.perf_counter() - t1
-        print(f"## C=A*B on device: {times['matmul_s']:.2f}s", flush=True)
-    else:
-        Am, A = rand_fr_mat(rng, n, dev)
-        Bm, B = rand_fr_mat(rng, n, dev)
-        C = matmul_mod(A, B)
-        Cm = fl.tensor(np.stack([FR.to_mont_ints(row) for row in C]), dev)
+    Am, Bm, Cm, matmul_s = make_data(rng, n, dev)
+    if matmul_s is not None:
+        times["matmul_s"] = matmul_s
+        print(f"## C=A*B on device: {matmul_s:.2f}s", flush=True)
     times["data_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

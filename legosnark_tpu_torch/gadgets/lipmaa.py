@@ -99,14 +99,19 @@ def keygen(n: int, seed: int = 0, device=None) -> HadLKey:
     return HadLKey(n, _cols(g1s, n + 1, 2 * n + 2), interp)
 
 
+def srs_path(n: int, seed: int, cache_dir=None) -> Path:
+    """The file `keygen_cached` keeps the key of (n, seed) in."""
+    return Path(cache_dir or util.SRS_CACHE_DIR) / \
+        f"lipmaa_torch_n{n}_s{seed}.npz"
+
+
 def keygen_cached(n: int, seed: int = 0, cache_dir=None,
                   device=None) -> HadLKey:
     """`keygen` through the SRS disk cache (`utils.util`), under the
     port's own file names in `srs_cache/` unless `cache_dir` names
     another directory."""
     dev = resolve_device(device)
-    path = Path(cache_dir or util.SRS_CACHE_DIR) / \
-        f"lipmaa_torch_n{n}_s{seed}.npz"
+    path = srs_path(n, seed, cache_dir)
     if path.exists():
         g = util.load_point_group(path, dev)
         return HadLKey(n, g["chi_pows"], InterpKey(

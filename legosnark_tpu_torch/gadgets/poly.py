@@ -160,6 +160,12 @@ def unstack(pf: PolyPf) -> list:
             for i in range(pf.witness.x.shape[0])]
 
 
+def srs_path(d: int, seed: int, cache_dir=None) -> Path:
+    """The file `keygen_cached` keeps the SRS of (d, seed) in."""
+    return Path(cache_dir or util.SRS_CACHE_DIR) / \
+        f"pst13_torch_d{d}_s{seed}.npz"
+
+
 def keygen_cached(d: int, seed: int = 0, cache_dir=None,
                   device=None) -> PolyKey:
     """`keygen` through a disk cache of the SRS (`utils.util`): a second
@@ -168,8 +174,7 @@ def keygen_cached(d: int, seed: int = 0, cache_dir=None,
     names another directory; its files carry the port's own names and
     layout, never the JAX package's."""
     dev = resolve_device(device)
-    cache = Path(cache_dir or util.SRS_CACHE_DIR)
-    path = cache / f"pst13_torch_d{d}_s{seed}.npz"
+    path = srs_path(d, seed, cache_dir)
     if path.exists():
         g = util.load_point_group(path, dev)
         return PolyKey(tuple(g[f"b{j:02d}"] for j in range(d + 1)),

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 import legosnark_tpu_torch
-from legosnark_tpu_torch import config, kernels
+from legosnark_tpu_torch import bench, config, kernels
+from legosnark_tpu_torch import bench_gadgets
 from legosnark_tpu_torch.curve import bn254, cuda_group
 from legosnark_tpu_torch.curve import group as tg
 from legosnark_tpu_torch.examples import cplink
@@ -61,6 +62,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         PKG.parent / "scripts" / "time_verify_torch.py"]
     assert len(files) > 15
     assert PKG / "parallel" / "sharded.py" in files
+    assert {PKG / "bench.py", PKG / "bench_gadgets.py"} <= set(files)
     bad = []
     for f in files:
         for name in _imported_modules(ast.parse(f.read_text())):
@@ -88,7 +90,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                                 util.populate_from_file_dist,
                                 util.load_point_batch, polytools.zero,
                                 polytools.one, polytools.x,
-                                polytools.one_minus_x])
+                                polytools.one_minus_x, bench.run_msm,
+                                bench_gadgets.bench_cplink,
+                                bench_gadgets.bench_cppoly,
+                                bench_gadgets.bench_cpsc,
+                                bench_gadgets.bench_cphad,
+                                bench_gadgets.bench_cpmmp])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default is None
     assert config.resolve_device("cpu").type == "cpu"
