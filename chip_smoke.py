@@ -54,10 +54,12 @@ Phases, each printing its result and times on its own line:
      flipped-output tamper false; the commitments, CPhadL's pi, the t_i G
      and lin_pi equal host-int scalars times G1 (chi, the l_i(chi) and
      k rebuilt from the seeds);
- 11. Groth16 on the n = 64 matmul R1CS (`examples.legogrothmatrix.run(64)`:
-     2^18 constraints, 270337 variables): keygen, prove, verify and the
-     emulated witness commitment, timed, with the kernels' launch counts
-     per phase, their widths and the phase's peak device memory; 32
+ 11. Groth16 on the n = 128 matmul R1CS (`examples.legogrothmatrix.run(128)`:
+     2^21 constraints, 2129921 variables, the reference's top size):
+     keygen, prove, verify and the emulated witness commitment, timed,
+     with the kernels' launch counts per phase, their widths and the
+     peak device memory of each phase and of the run (below 60 GiB: the
+     MSMs run their windows in memory-bounded chunks); 32
      sampled elements of each key query and A, B, C equal host-int
      scalars times G1 or G2 (the trapdoor and r, s drawn again from the
      seeds, the QAP values from host Lagrange values); the honest proof
@@ -137,6 +139,9 @@ DOUBLE_TIMES = (4, 17)
 NARROW_WIDTHS = (1, 2, 32, 1 << 10)
 #: the main path's kernels, whose launches phases 5 and 7 count
 MAIN_KERNELS = ("mont_mul", "g1_add", "g1_double")
+#: phase 11's ceiling on Groth16's peak device memory at n = 128 (of the
+#: card's 80 GB)
+GROTH16_PEAK_LIMIT = 60 << 30
 #: phase 13's paths, in the order it drives them
 BENCH_PATHS = ("bench_msm_c16", "cppoly_20var", "cpsc_16var",
                "bench_gadgets_rest")
@@ -1197,21 +1202,24 @@ def phase_groth16(torch, np, dev, n: int, kernels) -> dict:
 
     _sync(torch, dev)
     kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     res = legogrothmatrix.run(n, device=dev)
     total_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
-    peak = torch.cuda.max_memory_allocated(dev)
+    peaks = res["peak_bytes"]
     r1cs = res["r1cs"]
     log(f"# phase 11 Groth16 n={n} ({len(r1cs.A)} constraints, "
         f"{r1cs.num_vars} vars): launches {json.dumps(launches)} times "
         f"{json.dumps({k: round(v, 3) for k, v in res['times'].items()})} "
-        f"total {total_s:.1f}s peak device memory {peak} bytes "
-        f"({peak / 2**30:.2f} GiB)")
+        f"total {total_s:.1f}s")
     log(f"# phase 11 launches by phase: {json.dumps(res['launches'])}")
+    gib = {k: round(v / 2**30, 2) for k, v in peaks.items()}
+    log(f"# phase 11 peak device memory by phase, bytes: {json.dumps(peaks)} "
+        f"(GiB: {json.dumps(gib)})")
     log(f"# phase 11 launch widths: {json.dumps(_widths(kernels))}")
     check(res["ok"], "the Groth16 proof verifies")
+    check(0 < peaks.get("run", 0) < GROTH16_PEAK_LIMIT,
+          f"the run's peak device memory below {GROTH16_PEAK_LIMIT >> 30} GiB")
     for name in MAIN_KERNELS:
         check(launches.get(name, 0) > 0,
               f"{name} launched on the Groth16 path")
@@ -1220,7 +1228,7 @@ def phase_groth16(torch, np, dev, n: int, kernels) -> dict:
     log(f"# phase 11 ok: Groth16 at n={n} verifies, its key samples and "
         f"proof equal host ints, and three tampers fail")
     return {"launches": launches, "times": res["times"], "total_s": total_s,
-            "peak_bytes": peak}
+            "peak_bytes": peaks}
 
 
 def _groth16_host_checks(np, res, samples: int = 32) -> None:
@@ -1249,10 +1257,20 @@ def _groth16_host_checks(np, res, samples: int = 32) -> None:
     d = 1 << (m - 1).bit_length()
     root = fr_two_adic_root(d.bit_length() - 1)
     z_tau = (pow(tau, d, R) - 1) % R
-    lag, wj = [], 1
-    for _ in range(d):
-        lag.append(z_tau * wj * pow(d * (tau - wj), -1, R) % R)
-        wj = wj * root % R
+    ws = [1] * d
+    for j in range(1, d):
+        ws[j] = ws[j - 1] * root % R
+    # L_j(tau) = Z(tau) w^j / (d (tau - w^j)), the d inversions batched by
+    # prefix products (none of the factors is zero: tau is off the domain)
+    dens = [d * (tau - wj) % R for wj in ws]
+    pref = [1] * (d + 1)
+    for j, x in enumerate(dens):
+        pref[j + 1] = pref[j] * x % R
+    inv = pow(pref[d], -1, R)
+    lag = [0] * d
+    for j in range(d - 1, -1, -1):
+        lag[j] = z_tau * ws[j] % R * (inv * pref[j] % R) % R
+        inv = inv * dens[j] % R
     u, v, w = [0] * nv, [0] * nv, [0] * nv
     for rows, acc in ((r1cs.A, u), (r1cs.B, v), (r1cs.C, w)):
         for row, lj in zip(rows, lag):
@@ -1696,7 +1714,7 @@ def main(argv) -> int:
     had = timed(8, phase_hadamard, torch, np, dev, 14, kernels)
     link = timed(9, phase_cplink, torch, np, dev, 10, kernels)
     mac = timed(10, phase_matrixac, torch, np, dev, 8, kernels)
-    g16 = timed(11, phase_groth16, torch, np, dev, 64, kernels)
+    g16 = timed(11, phase_groth16, torch, np, dev, 128, kernels)
     worlds = sharded_worlds(torch)
     shd = timed(12, phase_sharded, torch, np, dev, dryrun.FULL, worlds)
     bnc = timed(13, phase_bench, torch, np, dev, kernels)
@@ -1705,7 +1723,7 @@ def main(argv) -> int:
              "hadamard_2e14": had["launches"] if had else {},
              "cplink_2e10": link["launches"] if link else {},
              "matrixac_8": mac["launches"] if mac else {},
-             "groth16_64": g16["launches"] if g16 else {}}
+             "groth16_128": g16["launches"] if g16 else {}}
     paths.update({p: shd["launches"][p] if shd else {} for p in worlds})
     paths.update({p: bnc["launches"].get(p, {}) if bnc else {}
                   for p in BENCH_PATHS})
@@ -1734,7 +1752,7 @@ def main(argv) -> int:
         summary.update({"fs_prove_s": round(fs["prove_s"], 3),
                         "fs_verify_s": round(fs["verify_s"], 3)})
     for name, res in (("hadamard_2e14", had), ("cplink_2e10", link),
-                      ("matrixac_8", mac), ("groth16_64", g16)):
+                      ("matrixac_8", mac), ("groth16_128", g16)):
         if res:
             summary[name] = {k: round(v, 3) for k, v in res["times"].items()}
     if shd:

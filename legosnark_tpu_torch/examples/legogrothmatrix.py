@@ -9,8 +9,9 @@ that committing the witness wires would add in a commit-and-prove
 composition (`commit_emul`). Data: rng 67 + n draws A, then B, then the
 emulated commitment's base scalars; setup and prove use seed n.
 
-Prints one `##` line per phase, the proof size and VERIFY OK or VERIFY
-FAIL (exit code 1).
+Prints one `##` line per phase, on the card one more per phase with its
+peak device memory and one with the run's, then the proof size and
+VERIFY OK or VERIFY FAIL (exit code 1).
 
 Usage: python -m legosnark_tpu_torch.examples.legogrothmatrix [MIN_N]
        [MAX_N] [--cpu]     (n doubles from MIN_N up to MAX_N)
@@ -22,6 +23,7 @@ import contextlib
 import sys
 
 import numpy as np
+import torch
 
 from .. import kernels
 from ..config import resolve_device
@@ -40,17 +42,34 @@ PHASES = ("keygen", "prove", "verify", "commit_emul")
 def run(n: int, device=None) -> dict:
     """Groth16 on the n x n matmul R1CS -> the R1CS, witness z, keys,
     proof, public inputs, `ok`, `proof_size`, the phase `times` in
-    seconds and the kernel `launches` of each phase."""
+    seconds, the kernel `launches` of each phase and, on the card, the
+    `peak_bytes` of device memory allocated in each phase and in the
+    whole run ("run"; the card's peak counter is reset at the start)."""
     dev = resolve_device(device)
+    on_card = dev.type == "cuda"
     timer = bm.Benchmarkable(f"groth16_n{n}")
-    launches = {}
+    launches, peaks = {}, {}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def mark(name=None):
+        """On the card: the peak since the last mark, folded into the
+        run's (and recorded as `name`'s); then a new span starts."""
+        if on_card:
+            b = torch.cuda.max_memory_allocated(dev)
+            peaks["run"] = max(peaks.get("run", 0), b)
+            if name:
+                peaks[name] = b
+            torch.cuda.reset_peak_memory_stats(dev)
 
     @contextlib.contextmanager
     def phase(name):
         before = collections.Counter(kernels.launches)
+        mark()
         with timer.phase(name) as out:
             yield out
         launches[name] = dict(collections.Counter(kernels.launches) - before)
+        mark(name)
 
     rng = np.random.default_rng(67 + n)
     r1cs, assign = groth16.matmul_r1cs(n)
@@ -86,11 +105,17 @@ def run(n: int, device=None) -> dict:
           f"{r1cs.num_vars} vars) on {dev} ===")
     for name in PHASES:
         bm.print_bm(f"groth16_{name}_n{n}", timer.timing_micros(name))
+    if on_card:
+        mark()
+        for name in PHASES + ("run",):
+            print(f"## groth16_{name}_peak_n{n}: {peaks[name]} bytes "
+                  f"({peaks[name] / 2**30:.2f} GiB)")
     print(f"## proof size: {sizes['g1']} G1 + {sizes['g2']} G2")
     print(f"VERIFY {'OK' if ok else 'FAIL'}", flush=True)
     return {"n": n, "r1cs": r1cs, "z": z, "pk": pk, "vk": vk, "pf": pf,
             "public": public, "ok": ok, "proof_size": sizes,
-            "times": timer.seconds(), "launches": launches}
+            "times": timer.seconds(), "launches": launches,
+            "peak_bytes": peaks}
 
 
 def main(argv):

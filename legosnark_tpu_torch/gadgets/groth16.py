@@ -29,6 +29,7 @@ batches [2, 8, n].
 """
 from __future__ import annotations
 
+import gc
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
@@ -190,8 +191,11 @@ def setup(r1cs: R1CS, seed: int = 0, device=None):
 
 
 def sparse_matvec(rows, z) -> list:
-    """<row, z> mod r for each sparse row."""
-    return [sum(coef * z[var] for var, coef in row) % R for row in rows]
+    """<row, z> mod r for each sparse row (a single-entry row, as most of
+    the matmul R1CS's are, without a sum)."""
+    return [(row[0][1] * z[row[0][0]] if len(row) == 1
+             else sum([coef * z[var] for var, coef in row])) % R
+            for row in rows]
 
 
 def prove(pk: ProvingKey, r1cs: R1CS, z: List[int], seed: int = 1) -> Proof:
@@ -283,18 +287,31 @@ def matmul_r1cs(n: int):
     def idx_p(i, j, k):
         return base_p + (i * n + j) * (n - 1) + k
 
+    # constraint (i, j, k): A row a_ik, B row b_kj, C row
+    # s_ijk - s_ij(k-1) (s_ij0 alone at k = 0, C_ij in place of s_ij(n-1)).
+    # The rows hold no cycles, so the collector is paused while millions
+    # of them are made (at n = 128 it would otherwise take most of the time)
+    neg1 = -1 % R
     A_rows, B_rows, C_rows = [], [], []
-    for i in range(n):
-        for j in range(n):
-            for k in range(n):
-                if k == 0:
-                    crow = [(idx_p(i, j, 0) if n > 1 else idx_c(i, j), 1)]
-                else:
-                    cur = idx_c(i, j) if k == n - 1 else idx_p(i, j, k)
-                    crow = [(cur, 1), (idx_p(i, j, k - 1), -1 % R)]
-                A_rows.append([(idx_a(i, k), 1)])
-                B_rows.append([(idx_b(k, j), 1)])
-                C_rows.append(crow)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        for i in range(n):
+            for j in range(n):
+                a0, b0, c_ij = idx_a(i, 0), idx_b(0, j), idx_c(i, j)
+                p0 = idx_p(i, j, 0)
+                A_rows += [[(a0 + k, 1)] for k in range(n)]
+                B_rows += [[(b0 + k * n, 1)] for k in range(n)]
+                if n == 1:
+                    C_rows.append([(c_ij, 1)])
+                    continue
+                C_rows.append([(p0, 1)])
+                C_rows += [[(p0 + k, 1), (p0 + k - 1, neg1)]
+                           for k in range(1, n - 1)]
+                C_rows.append([(c_ij, 1), (p0 + n - 2, neg1)])
+    finally:
+        if enabled:
+            gc.enable()
 
     num_vars = base_p + n2 * (n - 1)
     r1cs = R1CS(num_vars=num_vars, num_public=num_public,

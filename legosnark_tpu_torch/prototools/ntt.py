@@ -28,11 +28,12 @@ R = bn254.R
 
 def power_limbs(base: int, count: int) -> np.ndarray:
     """Montgomery limbs [8, count] of base^0 .. base^(count - 1), on the
-    host (not cached: keygen passes its trapdoor)."""
-    vals = [1] * count
+    host (not cached: keygen passes its trapdoor). The recurrence runs on
+    the Montgomery forms base^i 2^256 mod r themselves."""
+    vals = [FR.to_mont_int(1)] * count
     for i in range(1, count):
         vals[i] = vals[i - 1] * base % R
-    return FR.to_mont_ints(vals)
+    return fl.ints_to_limbs(vals)
 
 
 @functools.lru_cache(None)

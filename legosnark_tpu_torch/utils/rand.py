@@ -22,7 +22,11 @@ def rand_fr_int(rng: np.random.Generator) -> int:
 
 
 def rand_fr_ints(rng: np.random.Generator, n: int) -> list:
-    return [rand_fr_int(rng) for _ in range(n)]
+    """n `rand_fr_int` draws from one byte string: the generator's stream
+    is the same as n calls (40 bytes are whole 32-bit words)."""
+    buf = rng.bytes(40 * n)
+    return [int.from_bytes(buf[i : i + 40], "little") % bn254.R
+            for i in range(0, 40 * n, 40)]
 
 
 def rand_fr_mont(rng: np.random.Generator, n: int, device=None):

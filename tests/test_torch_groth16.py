@@ -3,14 +3,16 @@ matrix product: 8 constraints, 17 variables, 4 public outputs).
 
 Fast tier, on one module-scoped run of `legogrothmatrix.run(2, "cpu")`
 (setup with seed 2, prove with seed 2):
-* `matmul_r1cs(n)` and `assign` equal the JAX package's for n = 1, 2, 3
-  (host Python on both sides);
+* `matmul_r1cs(n)` and `assign` equal the JAX package's for n = 1, 2, 3,
+  4 (host Python on both sides);
 * every key element equals a host-int scalar times its generator
   (tests/oracle.py), with the trapdoor drawn again from the seed and the
   QAP values computed here from per-row Lagrange values;
 * A, B and C equal the host-int scalars built from the trapdoor and the
   draws of r and s, which holds the NTT quotient pipeline and every MSM
   without a pairing;
+* with a window budget that splits prove's MSMs into chunks, the example
+  gives the same key and proof, bit for bit;
 * the example prints the proof size and VERIFY OK; one `pairing_checks`
   call accepts the honest proof and rejects a changed public output and
   A swapped with C;
@@ -29,9 +31,11 @@ import torch
 
 import oracle
 
-from legosnark_tpu_torch import convert
+from legosnark_tpu_torch import config, convert
 from legosnark_tpu_torch.curve import bn254
+from legosnark_tpu_torch.curve import msm
 from legosnark_tpu_torch.curve import pairing as pr
+from legosnark_tpu_torch.curve.group import G1, G2
 from legosnark_tpu_torch.examples import legogrothmatrix
 from legosnark_tpu_torch.gadgets import groth16
 from legosnark_tpu_torch.utils import rand as lrand
@@ -117,7 +121,7 @@ def proof_scalars(r1cs, z, setup_seed, prove_seed):
     return A, B, C
 
 
-@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
 def test_matmul_r1cs_equals_jax(n):
     from legosnark_tpu.gadgets import groth16 as jg16
 
@@ -184,6 +188,28 @@ def test_example_prints_proof_size_and_verify_ok(run):
     assert run["proof_size"] == groth16.proof_size_group_elements() == \
         {"g1": 2, "g2": 1, "fr": 0}
     assert run["public"] == run["z"][1 : N * N + 1]
+
+
+def test_example_with_chunked_windows_gives_the_same_key_and_proof(
+        run, monkeypatch):
+    """The n = 2 example again, with a window budget that splits each of
+    prove's three MSMs into chunks: the same key and proof, bit for bit."""
+    pk = run["pk"]
+    cols = pk.a_query.x.shape[-1] + 1                 # z | r, z | s
+    c_cols = (pk.l_query.x.shape[-1] + pk.h_query.x.shape[-1] + 3)
+    monkeypatch.setattr(msm, "WINDOW_BUDGET",
+                        8 * msm.window_bytes(G2, (), cols))
+    for C, lead, m in ((G1, (2,), cols), (G2, (), cols), (G1, (), c_cols)):
+        W = -(-(bn254.FR.bits + 1) // config.default_window(m))
+        assert 1 < -(-W // msm.windows_per_chunk(C, W, lead, m))
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = legogrothmatrix.run(N, "cpu")
+    assert res["ok"] is True
+    for name in ("pk", "vk", "pf"):
+        for f, want in run[name]._asdict().items():
+            got = getattr(res[name], f)
+            assert (got == want if isinstance(want, int) else
+                    all(torch.equal(a, b) for a, b in zip(got, want))), f
 
 
 @pytest.fixture(scope="module")
