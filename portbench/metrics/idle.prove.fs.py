@@ -1,0 +1,6 @@
+"""idle.prove.fs: `idle.prove` read in the Fiat-Shamir cell, where it moves
+`statement_s` (that cell reports no `prove_s` or `verify_s`)."""
+
+from portbench import harness
+
+read = harness.load_reader("idle.prove").read
