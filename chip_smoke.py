@@ -642,8 +642,10 @@ def phase_cpmmp(torch, np, dev, d: int, kernels) -> dict:
 
 
 def _widths(kernels) -> dict:
-    """Launches of K1-K3 since the last reset, by power-of-two width."""
-    return {k: dict(sorted(kernels.launch_widths.get(k, {}).items()))
+    """Launches of K1-K3 since the last reset, by exact width: key "w",
+    or "wxt" for a K3 launch of `times` t > 1."""
+    return {k: {(f"{w}" if t == 1 else f"{w}x{t}"): n for (w, t), n in
+                sorted(kernels.launch_widths.get(k, {}).items())}
             for k in MAIN_KERNELS}
 
 

@@ -14,7 +14,7 @@ launch (the plain version loops the single doubling).
 Dispatch: CPU coordinates take the plain version, CUDA coordinates the
 kernel. Coordinates are (x, y, z) int32 tensors `[..., 8, n]` of one shape.
 Each launch is counted in `kernels.launches` and, by its width (points per
-launch), in `kernels.launch_widths`.
+launch) and `times`, in `kernels.launch_widths`.
 """
 from __future__ import annotations
 
@@ -78,7 +78,7 @@ def _check(name, coords):
 
 def _launch(name, fn_name, coords, *args):
     """Launch `fn_name` on the coordinates; `args` (ints) go between the
-    sizes and the constant block."""
+    sizes and the constant block: K3's `times`, none for K2."""
     _check(name, coords)
     outs = [torch.empty_like(coords[0]) for _ in range(3)]
     total = coords[0].numel() // NLIMBS
@@ -90,7 +90,7 @@ def _launch(name, fn_name, coords, *args):
              ctypes.cast(_words(), ctypes.c_void_p),
              torch.cuda.current_stream(coords[0].device).cuda_stream)
     kernels.check("g1.cu", err, name)
-    kernels.count(name, total)
+    kernels.count(name, total, *args)
     return tuple(outs)
 
 

@@ -26,6 +26,11 @@ ceil((bits + 1) / c), so the top window always absorbs the last carry.
 Step 1 gathers from [P | -P], so one gather both sorts and negates, in
 descending order of mag, so that step 2 is a prefix scan. Every add and
 double of a G1 MSM runs in kernels K2/K3.
+
+Spans (`utils/trace`): `msm` around each MSM (attributes: curve, rows,
+points, c, chunks), with the children `msm.digits` (signed digits and
+the negated sources), `msm.chunk` per chunk of windows (its window
+range) and `msm.horner`.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from ..fields import limb as fl
+from ..utils import trace
 from . import bn254
 from .group import CurveOps, Point, point_concat, point_map, scan
 
@@ -199,12 +205,22 @@ def msm(C: CurveOps, points: Point, scalars, c: int | None = None,
         window_chunk = windows_per_chunk(C, W, lead, n)
     if window_chunk < 1:
         raise ValueError(f"window_chunk {window_chunk} < 1")
-    mags, negs = _signed_digits(_all_digits(fr_spec, scalars, c, W), c)
-    src = point_concat([points, C.neg(points)])
-    parts = [_window_sums(C, src, mags[j : j + window_chunk],
-                          negs[j : j + window_chunk], lead, 1 << (c - 1))
-             for j in range(0, W, window_chunk)]
-    return _horner(C, point_map(lambda *a: torch.cat(a), *parts), c)
+    with trace.span("msm", curve="G1" if C.g1 else "G2",
+                    rows=math.prod(lead), points=n, c=c,
+                    chunks=-(-W // window_chunk)):
+        with trace.span("msm.digits"):
+            mags, negs = _signed_digits(_all_digits(fr_spec, scalars, c, W),
+                                        c)
+            src = point_concat([points, C.neg(points)])
+        parts = []
+        for j in range(0, W, window_chunk):
+            with trace.span("msm.chunk",
+                            windows=(j, min(W, j + window_chunk))):
+                parts.append(_window_sums(
+                    C, src, mags[j : j + window_chunk],
+                    negs[j : j + window_chunk], lead, 1 << (c - 1)))
+        with trace.span("msm.horner"):
+            return _horner(C, point_map(lambda *a: torch.cat(a), *parts), c)
 
 
 def msm_mont(C: CurveOps, points: Point, scalars_mont, c: int | None = None,

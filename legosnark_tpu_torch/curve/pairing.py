@@ -17,6 +17,11 @@ and one final exponentiation of width K; each product is still checked
 on its own. The JAX package's per-pad-width jitted pieces are not
 carried over: nothing here is compiled ahead of time.
 
+Spans (`utils/trace`): `pairing.checks` around each `pairing_checks`
+and `pairing_product_is_one` (attributes: pairs in all, products), with the
+children `pairing.miller` (affine legs, Miller loop, product of the
+Miller values) and `pairing.final_exp`.
+
 The final exponentiation is the JAX package's: its hard part computes
 f^(2x(6x^2 + 3x + 1)(q^4 - q^2 + 1)/r), a fixed power (coprime to r) of
 the reduced pairing f^((q^12 - 1)/r). So `pairing` is bilinear and
@@ -25,10 +30,12 @@ non-degenerate, and is that power of `tests/oracle.py`'s pairing.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from ..fields.tower import Fq6Ops, Fq12Ops
+from ..utils import trace
 from . import bn254
 from .group import (FQ2_OPS, FQ_OPS, G1, G2, Point, point_concat,
                     to_affine_batch)
@@ -253,18 +260,27 @@ def multi_miller(g1_points: Point, g2_points: Point):
     return _tree_prod(_miller_masked(g1_points, g2_points))
 
 
+def _checked(miller, pairs: int, products: int):
+    """Whether each final exponentiation of `miller()`'s products is 1,
+    as the spans `pairing.checks`, `pairing.miller`, `pairing.final_exp`."""
+    with trace.span("pairing.checks", pairs=pairs, products=products):
+        with trace.span("pairing.miller"):
+            f = miller()
+        with trace.span("pairing.final_exp"):
+            f = final_exp(f)
+        return F12.is_one(f)[..., 0]
+
+
 def pairing_product_is_one(g1_points: Point, g2_points: Point):
     """prod_i e(P_i, Q_i) == 1 over the vector axis, for every leading
     batch index: G1 [..., 8, n] and G2 [..., 2, 8, n] -> bool [...]."""
-    f = final_exp(multi_miller(g1_points, g2_points))
-    return F12.is_one(f)[..., 0]
+    products = math.prod(g1_points.x.shape[:-2])
+    return _checked(lambda: multi_miller(g1_points, g2_points),
+                    products * g1_points.x.shape[-1], products)
 
 
-def pairing_checks(groups):
-    """For each (G1 [8, n_k], G2 [2, 8, n_k]) in `groups`, whether
-    prod_i e(P_i, Q_i) == 1 -> bool [K]. One Miller loop runs over all
-    pairs and one final exponentiation over the K products."""
-    sizes = [g1.x.shape[-1] for g1, _ in groups]
+def _grouped_miller(groups, sizes):
+    """The product of each group's Miller values -> Fq12 [K, ..., 1]."""
     fs = _miller_masked(point_concat([g for g, _ in groups]),
                         point_concat([g for _, g in groups]))
     dev = fs.device
@@ -276,7 +292,16 @@ def pairing_checks(groups):
         idx[k, :n] = torch.arange(off, off + n)
         off += n
     g = fs[..., idx.to(dev)].movedim(-2, 0)             # [K, 2,3,2,8, width]
-    return F12.is_one(final_exp(_tree_prod(g)))[..., 0]
+    return _tree_prod(g)
+
+
+def pairing_checks(groups):
+    """For each (G1 [8, n_k], G2 [2, 8, n_k]) in `groups`, whether
+    prod_i e(P_i, Q_i) == 1 -> bool [K]. One Miller loop runs over all
+    pairs and one final exponentiation over the K products."""
+    sizes = [g1.x.shape[-1] for g1, _ in groups]
+    return _checked(lambda: _grouped_miller(groups, sizes), sum(sizes),
+                    len(groups))
 
 
 def simple_pairing_check(a1: Point, a2: Point, b1: Point, b2: Point):

@@ -24,8 +24,10 @@ baseline of the `legogrothmatrix` example:
       one product of four pairings.
 
 The R1CS is host-side sparse rows and the witness products Az, Bz, Cz
-run in Python ints. Layout: Fr vectors [8, n], G1 batches [8, n], G2
-batches [2, 8, n].
+run in Python ints: in `prove`, they and their limb conversion are one
+span `groth16.witness` (`utils/trace`; attribute: rows), and the limbs
+of the witness z for the MSMs another (vars). Layout: Fr vectors
+[8, n], G1 batches [8, n], G2 batches [2, 8, n].
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from ..curve.group import G1, G2, Point, point_concat, point_map, point_stack
 from ..fields import limb as fl
 from ..prototools import ntt
 from ..utils import rand as lrand
+from ..utils import trace
 
 FR = bn254.FR
 R = bn254.R
@@ -210,11 +213,12 @@ def prove(pk: ProvingKey, r1cs: R1CS, z: List[int], seed: int = 1) -> Proof:
 
     # H coefficients: (a b - c) / Z through the coset pipeline, the three
     # vectors through each NTT together
-    abc = [sparse_matvec(rows, z) + [0] * (D - len(rows))
-           for rows in (r1cs.A, r1cs.B, r1cs.C)]
-    evals = fl.to_mont(FR, fl.tensor(
-        fl.ints_to_limbs([x for vec in abc for x in vec]), dev)
-        .view(fl.NLIMBS, 3, D).movedim(1, 0))                 # [3, 8, D]
+    with trace.span("groth16.witness", rows=len(r1cs.A)):
+        abc = [sparse_matvec(rows, z) + [0] * (D - len(rows))
+               for rows in (r1cs.A, r1cs.B, r1cs.C)]
+        evals = fl.to_mont(FR, fl.tensor(
+            fl.ints_to_limbs([x for vec in abc for x in vec]), dev)
+            .view(fl.NLIMBS, 3, D).movedim(1, 0))             # [3, 8, D]
     cos = ntt.coset_ntt(ntt.intt(evals))
     prod = fl.sub(FR, fl.mont_mul(FR, cos[0], cos[1]), cos[2])
     h = ntt.coset_intt(ntt.divide_by_z_on_coset(prod))[..., : D - 1]
@@ -222,7 +226,8 @@ def prove(pk: ProvingKey, r1cs: R1CS, z: List[int], seed: int = 1) -> Proof:
     def col(k):
         return fl.tensor(fl.ints_to_limbs([k % R]), dev)
 
-    z_can = fl.tensor(fl.ints_to_limbs([x % R for x in z]), dev)
+    with trace.span("groth16.witness", vars=len(z)):
+        z_can = fl.tensor(fl.ints_to_limbs([x % R for x in z]), dev)
     zr = torch.cat([z_can, col(r_bl)], dim=-1)
     zs = torch.cat([z_can, col(s_bl)], dim=-1)
 

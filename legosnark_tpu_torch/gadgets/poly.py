@@ -42,7 +42,7 @@ from ..curve.group import (G1, G2, Point, g1_generator, g2_generator,
 from ..fields import limb as fl
 from ..prototools import mle
 from ..utils import rand as lrand
-from ..utils import util
+from ..utils import trace, util
 
 FR = bn254.FR
 
@@ -138,10 +138,12 @@ def compute_answer(key: PolyKey, v_mont, r_mont):
     return ans, G1.scalar_mul(key.g1, fl.from_mont(FR, ans))
 
 
+@trace.spanned("poly.prove")
 def prove(key: PolyKey, v_mont, r_mont) -> PolyPf:
     """d quotient witnesses by successive folding. Tables [K.., 8, 2^d]
     and points [K.., 8, d] open K tables at K points with one MSM per
-    round, giving witnesses [K.., 8, d] (`unstack` splits them)."""
+    round, giving witnesses [K.., 8, d] (`unstack` splits them). Each
+    call is one span `poly.prove` (`utils/trace`)."""
     ws, was = [], []
     v = v_mont
     for i in range(poly_d(key)):

@@ -14,6 +14,7 @@ import torch
 from ..curve import bn254
 from ..curve.group import FR_OPS, G1, Point, point_concat, point_map
 from ..fields import limb as fl
+from ..utils import trace
 
 FR = bn254.FR
 
@@ -28,11 +29,13 @@ def _col(p: Point, i: int) -> Point:
     return point_map(lambda a: a[..., i : i + 1], p)
 
 
+@trace.spanned("sigma.smul")
 def smul_many(terms) -> list:
     """[(P_k, s_k), ...] -> [s_k * P_k] in one batched scalar
     multiplication: P_k a G1 batch [..., 8, m] and s_k Montgomery Fr
     scalars broadcastable against it (a [8, 1] point against [8, m]
-    scalars, say). Each product keeps the broadcast shape of its pair."""
+    scalars, say). Each product keeps the broadcast shape of its pair.
+    Each call is one span `sigma.smul` (`utils/trace`)."""
     shapes, pts, ks = [], [], []
     for p, k in terms:
         shape = torch.broadcast_shapes(p.x.shape, k.shape)

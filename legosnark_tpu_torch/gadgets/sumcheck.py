@@ -24,6 +24,12 @@ moves before eq_e, and the answer commitments and ZKPrd first moves
 before prd_e, in the JAX package's order; the verifier recomputes every
 challenge from the proof (the proof's `r` is not read).
 
+Spans (`utils/trace`): `sumcheck.prove` around `prove`, and in it
+`sumcheck.round` around each round (attribute: round); in `verify`,
+`sumcheck.replay` around the batched
+scalar multiplication of the round replay and its checks (terms) and
+`sigma.verify` around the ZKEq and ZKPrd checks (rounds).
+
 Layout: tables [k, 8, 2^d]; challenge lists [8, d]; scalars [8, 1].
 """
 from __future__ import annotations
@@ -37,6 +43,7 @@ from ..curve import pairing as pr
 from ..curve.group import FR_OPS, G1, Point, point_concat, point_map
 from ..fields import limb as fl
 from ..prototools import mle, polytools
+from ..utils import trace
 from . import poly as cppoly
 from . import sigma
 
@@ -67,6 +74,7 @@ def commit_scalar(g: Point, v_mont) -> Point:
     return G1.scalar_mul(g, fl.from_mont(FR, v_mont))
 
 
+@trace.spanned("sumcheck.prove")
 def prove(key: cppoly.PolyKey, tables, rand, open_points_fn, open_tables,
           challenges=None, transcript=None, beta_table=None,
           extra_openings=()):
@@ -95,17 +103,18 @@ def prove(key: cppoly.PolyKey, tables, rand, open_points_fn, open_tables,
 
     hs, hcs, rs = [], [], []
     for i in range(d):
-        hpoly = mle.round_poly(full)                # [8, k+1]
-        if transcript is not None:
-            hc = commit_scalar(g, hpoly)
-            transcript.absorb_point(hc)
-            hcs.append(hc)
-            r = transcript.challenge()
-        else:
-            r = challenges[..., i : i + 1]
-        hs.append(hpoly)
-        rs.append(r)
-        full = mle.fold(full, r)
+        with trace.span("sumcheck.round", round=i):
+            hpoly = mle.round_poly(full)                # [8, k+1]
+            if transcript is not None:
+                hc = commit_scalar(g, hpoly)
+                transcript.absorb_point(hc)
+                hcs.append(hc)
+                r = transcript.challenge()
+            else:
+                r = challenges[..., i : i + 1]
+            hs.append(hpoly)
+            rs.append(r)
+            full = mle.fold(full, r)
     r_stack = torch.cat(rs, dim=-1)
     z0 = fl.add(FR, polytools.eval_at(hs[0], fl.zero(FR, (), dev)),
                 polytools.eval_at(hs[0], fl.one(FR, (), dev)))
@@ -220,42 +229,46 @@ def verify(key: cppoly.PolyKey, z0_comm: Point, mle_comms, proof,
     openings += list(extra_openings)
 
     # round replay: h_i at (0, 1, r_i) on the commitments, as [d, 3, 8, 1]
-    at = torch.stack([fl.zero(FR, (d,), dev), fl.one(FR, (d,), dev),
-                      r_stack]).movedim(-1, 0)[..., None]
-    terms = [(point_map(lambda x: x[:, None], hcomms),
-              polytools.powers_of(at, k1)), (g, proof.finals)]
-    terms += [(pf.witness, pt) for _, _, pt, pf in openings]
     ans_a = point_map(lambda x: x[..., 0:1], proof.ans_comms)
     ans_b = point_map(lambda x: x[..., 1:2], proof.ans_comms)
-    if beta_point_fn is not None:
-        terms.append((ans_a, beta_point_fn(r_stack)))
-    if z0_mont is not None:
-        terms.append((g, z0_mont))
-    prods = sigma.smul_many(terms)
-    ev = G1.sum_reduce(prods[0])
-    checks = [G1.eq(prods[1], proof.ans_comms).all()]
-    rws = [G1.sum_reduce(p) for p in prods[2 : 2 + len(openings)]]
-    rest = prods[2 + len(openings):]
-    lhs_comm = ans_a if beta_point_fn is None else rest.pop(0)
-    if z0_mont is not None:
-        checks.append(G1.eq(rest.pop(0), z0_comm).all())
-    if not bool(torch.stack(checks).all()):
-        return torch.zeros((), dtype=torch.bool, device=dev)
+    with trace.span("sumcheck.replay", terms=2 + len(openings)
+                    + (beta_point_fn is not None) + (z0_mont is not None)):
+        at = torch.stack([fl.zero(FR, (d,), dev), fl.one(FR, (d,), dev),
+                          r_stack]).movedim(-1, 0)[..., None]
+        terms = [(point_map(lambda x: x[:, None], hcomms),
+                  polytools.powers_of(at, k1)), (g, proof.finals)]
+        terms += [(pf.witness, pt) for _, _, pt, pf in openings]
+        if beta_point_fn is not None:
+            terms.append((ans_a, beta_point_fn(r_stack)))
+        if z0_mont is not None:
+            terms.append((g, z0_mont))
+        prods = sigma.smul_many(terms)
+        ev = G1.sum_reduce(prods[0])
+        checks = [G1.eq(prods[1], proof.ans_comms).all()]
+        rws = [G1.sum_reduce(p) for p in prods[2 : 2 + len(openings)]]
+        rest = prods[2 + len(openings):]
+        lhs_comm = ans_a if beta_point_fn is None else rest.pop(0)
+        if z0_mont is not None:
+            checks.append(G1.eq(rest.pop(0), z0_comm).all())
+        if not bool(torch.stack(checks).all()):
+            return torch.zeros((), dtype=torch.bool, device=dev)
 
     def rounds(p):
         """[d, 8, 1] -> [8, d]: the rounds onto the vector axis."""
         return point_map(lambda x: x[..., 0].movedim(0, -1), p)
 
-    v_comm = rounds(G1.add(point_map(lambda x: x[:, 0], ev),
-                           point_map(lambda x: x[:, 1], ev)))
-    at_r = rounds(point_map(lambda x: x[:, 2], ev))
-    claims = point_concat([z0_comm, point_map(lambda x: x[..., :-1], at_r)])
-    z_comm = point_map(lambda x: x[..., -1:], at_r)
-    eq_ok = sigma.zkeq_verify(h, v_comm, claims, proof.eq_proofs, eq_e)
-    prd_ok = sigma.zkprd_verify(g, h, lhs_comm, ans_b, z_comm,
-                                proof.prd_proof, prd_e)
-    if not bool(eq_ok.all() & prd_ok):
-        return torch.zeros((), dtype=torch.bool, device=dev)
+    with trace.span("sigma.verify", rounds=d):
+        v_comm = rounds(G1.add(point_map(lambda x: x[:, 0], ev),
+                               point_map(lambda x: x[:, 1], ev)))
+        at_r = rounds(point_map(lambda x: x[:, 2], ev))
+        claims = point_concat([z0_comm,
+                               point_map(lambda x: x[..., :-1], at_r)])
+        z_comm = point_map(lambda x: x[..., -1:], at_r)
+        eq_ok = sigma.zkeq_verify(h, v_comm, claims, proof.eq_proofs, eq_e)
+        prd_ok = sigma.zkprd_verify(g, h, lhs_comm, ans_b, z_comm,
+                                    proof.prd_proof, prd_e)
+        if not bool(eq_ok.all() & prd_ok):
+            return torch.zeros((), dtype=torch.bool, device=dev)
 
     groups = []
     for (cm, ansc, pt, pf), rw in zip(openings, rws):

@@ -9,8 +9,9 @@ The first kernel launch builds everything; `build()` does it explicitly.
 
 `launches` counts, per kernel, the launches made by the wrappers in
 `fields/cuda_limb.py`, `curve/cuda_group.py` and `probes/mont_variants.py`;
-`launch_widths` splits them by width (elements per launch, in power-of-two
-buckets). Both go up only through `count`, where a wrapper launches.
+`launch_widths` splits them by exact width (elements per launch) and
+`times` (the doublings of one K3 launch; 1 for every other kernel). Both
+go up only through `count`, where a wrapper launches.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: kernel name -> launches since the last `reset_launches()`
 launches: collections.Counter = collections.Counter()
-#: kernel name -> {w: launches over more than w/2 and at most w elements}
+#: kernel name -> {(elements, times): launches}
 launch_widths: collections.defaultdict = collections.defaultdict(
     collections.Counter)
 
@@ -57,10 +58,11 @@ def reset_launches() -> None:
     launch_widths.clear()
 
 
-def count(name: str, total: int) -> None:
-    """Count one launch of kernel `name` over `total` >= 1 elements."""
+def count(name: str, total: int, times: int = 1) -> None:
+    """Count one launch of kernel `name` over `total` >= 1 elements,
+    `times` steps each (K3's doublings)."""
     launches[name] += 1
-    launch_widths[name][1 << (total - 1).bit_length()] += 1
+    launch_widths[name][(total, times)] += 1
 
 
 def _nvcc() -> str:

@@ -11,6 +11,9 @@ pairs taken by reshapes of the vector axis. Inputs are Montgomery limbs
 [..., 8, n]; leading axes transform several vectors at once. Twiddle and
 power tables are computed once per (base, size, device) from Python
 ints on the host (`power_limbs`) and kept on the device.
+
+Each transform, plain or coset, is one span `ntt` (`utils/trace`;
+attributes: size, batch, inverse, coset).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from ..curve import bn254
 from ..fields import limb as fl
+from ..utils import trace
 
 FR = bn254.FR
 R = bn254.R
@@ -71,10 +75,13 @@ def _log2(n: int) -> int:
     return log_n
 
 
-def ntt(a, inverse: bool = False):
-    """In-order NTT of Montgomery coefficients [..., 8, n] -> evaluations
-    at the powers of the 2^log_n root `bn254.fr_two_adic_root`; inverse:
-    evaluations -> coefficients, the 1/n scale included."""
+def _span(a, inverse: bool, coset: bool):
+    n = a.shape[-1]
+    return trace.span("ntt", size=n, batch=a.numel() // (fl.NLIMBS * n),
+                      inverse=inverse, coset=coset)
+
+
+def _ntt(a, inverse: bool):
     n = a.shape[-1]
     log_n = _log2(n)
     a = torch.index_select(a, -1, _bitrev_on(log_n, a.device))
@@ -95,21 +102,32 @@ def ntt(a, inverse: bool = False):
     return a
 
 
+def ntt(a, inverse: bool = False):
+    """In-order NTT of Montgomery coefficients [..., 8, n] -> evaluations
+    at the powers of the 2^log_n root `bn254.fr_two_adic_root`; inverse:
+    evaluations -> coefficients, the 1/n scale included."""
+    with _span(a, inverse, False):
+        return _ntt(a, inverse)
+
+
 def intt(a):
-    return ntt(a, inverse=True)
+    with _span(a, True, False):
+        return _ntt(a, True)
 
 
 def coset_ntt(a):
     """Evaluations on the coset g<w>, g = `fr_multiplicative_generator`."""
-    shift = _powers(bn254.fr_multiplicative_generator(),
-                    _log2(a.shape[-1]), a.device)
-    return ntt(fl.mont_mul(FR, a, shift))
+    with _span(a, False, True):
+        shift = _powers(bn254.fr_multiplicative_generator(),
+                        _log2(a.shape[-1]), a.device)
+        return _ntt(fl.mont_mul(FR, a, shift), False)
 
 
 def coset_intt(a):
-    g_inv = pow(bn254.fr_multiplicative_generator(), R - 2, R)
-    return fl.mont_mul(FR, intt(a), _powers(g_inv, _log2(a.shape[-1]),
-                                            a.device))
+    with _span(a, True, True):
+        g_inv = pow(bn254.fr_multiplicative_generator(), R - 2, R)
+        return fl.mont_mul(FR, _ntt(a, True),
+                           _powers(g_inv, _log2(a.shape[-1]), a.device))
 
 
 def divide_by_z_on_coset(evals):

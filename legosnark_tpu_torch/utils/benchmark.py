@@ -19,6 +19,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from . import trace
+
 
 def _devices(value: Any, out: set) -> set:
     """The CUDA devices of the tensors in a nest of tuples and lists."""
@@ -82,11 +84,13 @@ class Benchmarkable:
     @contextlib.contextmanager
     def phase(self, name: str):
         """Times the body; the tensors it appends to the yielded list are
-        waited for before the clock stops."""
+        waited for before the clock stops. The body and the wait are also
+        one span `name` of `utils/trace`."""
         out: list = []
-        self.start_benchmark(name)
-        yield out
-        self.stop_benchmark(name, out)
+        with trace.span(name):
+            self.start_benchmark(name)
+            yield out
+            self.stop_benchmark(name, out)
 
     def timing_micros(self, phase: str) -> float:
         return self.benchmark.get(self.obj_id, phase)

@@ -32,6 +32,7 @@ from ..config import resolve_device
 from ..curve import bn254
 from ..curve.group import G1, Point, to_affine_batch
 from ..fields import limb as fl
+from . import trace
 
 FR = bn254.FR
 N_ROUNDS = 110
@@ -51,6 +52,7 @@ def permute(x):
     """110 rounds of x <- (x + c_i)^5, batched over the vector axis:
     three Montgomery products per round, 330 in all."""
     consts = _round_constants(x.device)
+    trace.count("mimc.permute")
     for i in range(N_ROUNDS):
         t = fl.add(FR, x, consts[i])
         t4 = fl.mont_sqr(FR, fl.mont_sqr(FR, t))
@@ -75,7 +77,9 @@ def _tree_digest(v):
 
 class Transcript:
     """Absorb-then-squeeze sponge; the state is one Fr element [8, 1] on
-    `device` (CUDA unless the caller names another)."""
+    `device` (CUDA unless the caller names another). Each absorb and each
+    squeeze is one span (`transcript.absorb`, `transcript.squeeze`) that
+    counts its permutations (`mimc.permute`)."""
 
     def __init__(self, label: int = 0, device=None):
         dev = resolve_device(device)
@@ -84,6 +88,11 @@ class Transcript:
     def absorb_fr(self, v_mont) -> None:
         """Absorb a batch of Fr elements [..., 8, m] (any leading axes,
         flattened in order onto the vector axis)."""
+        with trace.span("transcript.absorb",
+                        lanes=v_mont.numel() // fl.NLIMBS):
+            self._absorb(v_mont)
+
+    def _absorb(self, v_mont) -> None:
         v = v_mont.reshape(-1, fl.NLIMBS, v_mont.shape[-1])
         digest = _tree_digest(torch.cat(v.unbind(0), dim=-1))
         self.state = permute(fl.add(FR, self.state, digest))
@@ -91,17 +100,24 @@ class Transcript:
     def absorb_point(self, p: Point) -> None:
         """Absorb a G1 batch [..., 8, m] as affine (x mod r, y mod r),
         the identity as (0, 0)."""
-        a = to_affine_batch(G1, p)
-        ident = G1.is_identity(p)
-        xy = fl.canon(FR, fl.from_mont(bn254.FQ, torch.stack([a.x, a.y])))
-        xy = fl.select(ident, torch.zeros_like(xy), xy)
-        self.absorb_fr(fl.to_mont(FR, xy))
+        with trace.span("transcript.absorb",
+                        lanes=2 * (p.x.numel() // fl.NLIMBS)):
+            a = to_affine_batch(G1, p)
+            ident = G1.is_identity(p)
+            xy = fl.canon(FR, fl.from_mont(bn254.FQ, torch.stack([a.x, a.y])))
+            xy = fl.select(ident, torch.zeros_like(xy), xy)
+            self._absorb(fl.to_mont(FR, xy))
 
-    def challenge(self):
-        """Squeeze one Fr challenge [8, 1] (Montgomery form)."""
+    def _squeeze(self):
         self.state = permute(self.state)
         return self.state
 
+    def challenge(self):
+        """Squeeze one Fr challenge [8, 1] (Montgomery form)."""
+        with trace.span("transcript.squeeze", challenges=1):
+            return self._squeeze()
+
     def challenges(self, n: int):
         """[8, n] challenges."""
-        return torch.cat([self.challenge() for _ in range(n)], dim=-1)
+        with trace.span("transcript.squeeze", challenges=n):
+            return torch.cat([self._squeeze() for _ in range(n)], dim=-1)

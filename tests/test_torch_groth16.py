@@ -39,6 +39,7 @@ from legosnark_tpu_torch.curve.group import G1, G2
 from legosnark_tpu_torch.examples import legogrothmatrix
 from legosnark_tpu_torch.gadgets import groth16
 from legosnark_tpu_torch.utils import rand as lrand
+from legosnark_tpu_torch.utils import trace
 
 # The plain path runs many small torch ops; idle intra-op threads spin and
 # starve the other test processes, so the port's tests use one thread.
@@ -57,11 +58,18 @@ def _inference_mode():
 
 @pytest.fixture(scope="module")
 def run():
-    """`legogrothmatrix.run(2, "cpu")` with its printed lines."""
+    """`legogrothmatrix.run(2, "cpu")` with its printed lines, traced:
+    its spans under "spans"."""
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        res = legogrothmatrix.run(N, "cpu")
+    trace.drain()
+    trace.enable()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = legogrothmatrix.run(N, "cpu")
+    finally:
+        trace.disable()
     res["stdout"] = buf.getvalue()
+    res["spans"] = trace.drain()
     return res
 
 
@@ -176,6 +184,40 @@ def test_prove_equals_host_ints(run):
     assert convert.to_ints(pf.a) == [g1(A)]
     assert convert.to_ints(pf.b, g2=True) == [g2(B)]
     assert convert.to_ints(pf.c) == [g1(C)]
+
+
+def test_traced_run_spans(run):
+    """The example's phases as spans, and in them the host witness, the
+    three NTTs of H, the G1 and G2 MSMs and one pairing product."""
+    spans = run["spans"]
+    by_id = {s.id: s for s in spans}
+    phases = {s.name: s for s in spans if s.parent is None}
+    assert set(phases) == {"keygen", "prove", "verify", "commit_emul"}
+
+    def under(phase, name):
+        out = []
+        for s in spans:
+            up = by_id.get(s.parent)
+            while up is not None and up.parent is not None:
+                up = by_id.get(up.parent)
+            if s.name == name and up is phases[phase]:
+                out.append(s)
+        return out
+
+    r1cs, _ = groth16.matmul_r1cs(N)
+    assert [s.attrs for s in under("prove", "groth16.witness")] == [
+        {"rows": len(r1cs.A)}, {"vars": r1cs.num_vars}]
+    assert [(s.attrs["inverse"], s.attrs["coset"], s.attrs["batch"])
+            for s in under("prove", "ntt")] == [
+        (True, False, 3), (False, True, 3), (True, True, 1)]
+    assert [(s.attrs["curve"], s.attrs["rows"])
+            for s in under("prove", "msm")] == [("G1", 2), ("G2", 1),
+                                                ("G1", 1)]
+    assert [s.attrs["curve"] for s in under("commit_emul", "msm")] == ["G1"]
+    (pc,) = under("verify", "pairing.checks")
+    assert pc.attrs == {"pairs": 4, "products": 1}
+    assert [s.name for s in spans if s.parent == pc.id] == [
+        "pairing.miller", "pairing.final_exp"]
 
 
 def test_example_prints_proof_size_and_verify_ok(run):

@@ -57,7 +57,6 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [
         PKG.parent / "chip_smoke.py",
-        PKG.parent / "scripts" / "profile_cpmmp_torch.py",
         PKG.parent / "scripts" / "sweep_g1_threads.py",
         PKG.parent / "scripts" / "time_verify_torch.py"]
     assert len(files) > 15

@@ -94,7 +94,7 @@ def test_k2_k3_equal_plain(cuda, n):
             torch.cuda.synchronize()
             assert kernels.launches == {"g1_double": 1}
             assert kernels.launch_widths["g1_double"] == {
-                1 << (n - 1).bit_length(): 1}
+                (n, times): 1}
             for got, want in zip(d, cuda_group.double_point_plain(p, times)):
                 assert torch.equal(got, want)
 

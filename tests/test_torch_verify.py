@@ -10,6 +10,7 @@ The Fiat-Shamir transcript absorbs points in the port's own encoding
 (ROADMAP R5), so those proofs cannot equal the JAX package's byte for
 byte; they are held to verification.
 """
+import collections
 import contextlib
 import io
 
@@ -27,6 +28,7 @@ from legosnark_tpu_torch.gadgets import poly as cppoly
 from legosnark_tpu_torch.gadgets import sigma
 from legosnark_tpu_torch.prototools import mle, polytools
 from legosnark_tpu_torch.utils import rand as lrand
+from legosnark_tpu_torch.utils import trace
 
 # The plain path runs many small torch ops; idle intra-op threads spin and
 # starve the other test processes, so the port's tests use one thread.
@@ -35,28 +37,43 @@ torch.set_num_threads(1)
 FR = bn254.FR
 
 
+@contextlib.contextmanager
+def _traced(spans: list):
+    """Tracing on over the block; its spans are appended to `spans`."""
+    trace.drain()
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.disable()
+        spans += trace.drain()
+
+
 @pytest.fixture(scope="module")
 def hv():
     """The port's own n = 4 honest-verifier keygen -> commit -> prove ->
-    verify (the example's `run`, verify included). Its key and
+    verify (the example's `run`, verify included), traced. Its key and
     commitments serve the Fiat-Shamir proofs too. Its printed lines are
-    kept under "stdout"."""
+    kept under "stdout", its spans under "spans"."""
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    spans = []
+    with contextlib.redirect_stdout(out), _traced(spans):
         res = matrixsc.run(2, device="cpu", fs=False)
-    return {**res, "stdout": out.getvalue()}
+    return {**res, "stdout": out.getvalue(), "spans": spans}
 
 
 @pytest.fixture(scope="module")
 def fs(hv):
     """Fiat-Shamir proof of C = A*B with C public, on `hv`'s key and
-    commitments, and its verdict."""
-    pf = cpmat.prove_output_in_clear_fs(hv["key"], hv["A"], hv["B"], hv["C"],
-                                        hv["a_comm"], hv["b_comm"],
-                                        hv["nonces"])
-    ok = bool(cpmat.verify_output_in_clear_fs(hv["key"], hv["a_comm"],
-                                              hv["b_comm"], hv["C"], pf))
-    return pf, ok
+    commitments, its verdict and the spans of both (traced)."""
+    spans = []
+    with _traced(spans):
+        pf = cpmat.prove_output_in_clear_fs(
+            hv["key"], hv["A"], hv["B"], hv["C"], hv["a_comm"],
+            hv["b_comm"], hv["nonces"])
+        ok = bool(cpmat.verify_output_in_clear_fs(
+            hv["key"], hv["a_comm"], hv["b_comm"], hv["C"], pf))
+    return pf, ok, spans
 
 
 @pytest.fixture(scope="module")
@@ -127,7 +144,7 @@ def test_hv_tamper_is_rejected(hv, what):
 
 
 def test_fs_in_clear_round_trip(hv, fs):
-    pf, ok = fs
+    pf, ok, _ = fs
     assert ok is True
     # the challenges were drawn from the transcript, not injected
     assert pf.r.shape == (8, 2) and not torch.equal(pf.r, hv["r"])
@@ -138,6 +155,67 @@ def test_fs_in_clear_tamper_is_rejected(hv, fs):
     other challenges from the transcript."""
     assert not bool(cpmat.verify_output_in_clear_fs(
         hv["key"], hv["b_comm"], hv["a_comm"], hv["C"], fs[0]))
+
+
+def _children(spans, parent) -> list:
+    return [s.name for s in spans if s.parent == parent.id]
+
+
+def test_hv_statement_spans(hv):
+    """The traced honest-verifier run: the MSMs of commit; the sumcheck
+    prover with one span per round, its batched scalar multiplication and
+    the openings' MSMs; the verifier's replay, sigma and pairing stages;
+    no transcript."""
+    spans = hv["spans"]
+    by_id = {s.id: s for s in spans}
+    top = collections.Counter(s.name for s in spans if s.parent is None)
+    assert top == {"msm": 2, "sumcheck.prove": 1, "sumcheck.replay": 1,
+                   "sigma.verify": 1, "pairing.checks": 1}
+    (prover,) = [s for s in spans if s.name == "sumcheck.prove"]
+    assert _children(spans, prover) == ["sumcheck.round"] * 2 + [
+        "sigma.smul", "poly.prove"]
+    (opening,) = [s for s in spans if s.name == "poly.prove"]
+    assert _children(spans, opening) == ["msm"] * 4
+    # batched scalar multiplications: the prover's one, one in the
+    # verifier's replay, two in its sigma checks
+    assert collections.Counter(
+        by_id[s.parent].name for s in spans if s.name == "sigma.smul") == {
+            "sumcheck.prove": 1, "sumcheck.replay": 1, "sigma.verify": 2}
+    assert [s.attrs["round"] for s in spans
+            if s.name == "sumcheck.round"] == [0, 1]
+    for s in spans:
+        if s.name == "msm":
+            # a commitment's two legs; the openings' two tables, two each
+            assert s.attrs["curve"] == "G1" and s.attrs["rows"] in (2, 4)
+            assert _children(spans, s) == ["msm.digits", "msm.chunk",
+                                           "msm.horner"]
+    (pc,) = [s for s in spans if s.name == "pairing.checks"]
+    assert _children(spans, pc) == ["pairing.miller", "pairing.final_exp"]
+    # one Miller loop over every equation's pairs, each of two pairs or more
+    assert pc.attrs["pairs"] >= 2 * pc.attrs["products"] >= 2
+
+
+def test_fs_statement_spans(fs):
+    """The traced Fiat-Shamir prove and verify: each prover round absorbs
+    and squeezes inside its own span; no transcript span nests in another;
+    each counts its MiMC permutations."""
+    _, _, spans = fs
+    by_id = {s.id: s for s in spans}
+    tr = [s for s in spans if s.name.startswith("transcript.")]
+    assert tr and all(s.counts["mimc.permute"] >= 1 for s in tr)
+    assert not any(s.parent in by_id
+                   and by_id[s.parent].name.startswith("transcript.")
+                   for s in tr)
+    rounds = [s for s in spans if s.name == "sumcheck.round"]
+    assert len(rounds) == 2
+    for r in rounds:
+        assert _children(spans, r) == ["transcript.absorb",
+                                       "transcript.squeeze"]
+        assert r.counts["mimc.permute"] == sum(
+            by_id[i].counts["mimc.permute"] for i in by_id
+            if by_id[i].parent == r.id)
+    assert [s.name for s in spans if s.parent is None].count(
+        "pairing.checks") == 1
 
 
 def test_fs_committed_round_trip(hv, committed):
