@@ -9,7 +9,11 @@ Phases, each printing its result and times on its own line:
      plain PyTorch versions at 2^20 elements, bit for bit, with edge
      values, the identity, P + P and P + (-P); then K2, K3 and K3 with
      times = 17 at widths 1, 2, 32 and 2^10, bit for bit, with device us
-     per launch and host us per wrapper call;
+     per launch and host us per wrapper call; K4 (the MiMC permutation)
+     against the transcript's torch loop at 2^20 (the plain form and the
+     tree's combine, odd and even) and at width 1 (the plain form and
+     state + digest), timed at 2^20 beside its bound and at width 1 in
+     device and host us;
   3. a 2^20-point MSM with c = 17 (signed digits) checked by a trapdoor:
      points k_i*G with known k_i, expected (sum s_i k_i mod r)*G;
   4. CPmmp at n = 4 on the card against the same run on the CPU, element
@@ -29,8 +33,8 @@ Phases, each printing its result and times on its own line:
      the card: bilinearity e(aG1, bG2) = e(G1, G2)^(ab) at width 64 and
      e(G1, G2) equal to the CPU's;
   7. the Fiat-Shamir path at n = 1024 with phase 5's key and data: prove
-     and verify true, a tampered proof false, with its launch counts and
-     their widths;
+     and verify true (the transcript on K4), a tampered proof false, with
+     its launch counts and their widths;
   8. the Hadamard example at n = 2^14 (`examples.hadamard.run(14)`):
      CPhadL keygen, three commitments, prove, verify, then CPhad in the
      Fiat-Shamir mode, each timed, with the kernels' launch counts and
@@ -132,6 +136,8 @@ IMUL_PER_TC = 2 * 64 + 1
 TC_OPS_PER_ELEM = 4 * 16 * 8 * 32 * 2 // 8
 INT8_TC_OPS_PER_S = 1979e12
 LIMB_BYTES = 32
+#: Montgomery products per MiMC permutation (K4): 110 rounds of three
+MIMC_PRODUCTS = 330
 #: K3's `times` checked and timed at 2^20 (4: scalar multiplication's
 #: windows, 17: the Horner step of a c = 17 MSM)
 DOUBLE_TIMES = (4, 17)
@@ -283,7 +289,8 @@ def phase_startup(torch, kernels) -> dict:
         regs = [ln.strip() for ln in rec["log"].splitlines()
                 if "registers" in ln or "spill" in ln]
         log(f"# build {name}: {rec['seconds']:.1f}s; {'; '.join(regs)}")
-    for src, what in (("g1.cu", "K2 and K3"), ("mont_tc.cu", "P1b")):
+    for src, what in (("g1.cu", "K2 and K3"), ("mont_tc.cu", "P1b"),
+                      ("mimc.cu", "K4")):
         check(not re.search(r"[1-9][0-9]* bytes spill", log_[src]["log"]),
               f"{what} build without spills")
     log(f"# phase 1 ok: kernels built in {build_s:.1f}s")
@@ -385,10 +392,56 @@ def phase_kernels(torch, np, dev, n: int) -> dict:
         log(f"# phase 2 g1_double times={k} n={n}: max_abs_err {err} kernel "
             f"{ms:.4f} ms bound {tb:.4f} ms ({by})")
     _narrow_widths(dev, Pc, Qc, stats)
+    stats["mimc"] = _mimc(dev, rng, n)
     for name, st in stats.items():
         check(st["max_abs_err"] == 0, f"{name} equals its plain version")
-    log("# phase 2 ok: K1, K2, K3 bit-identical to their plain versions")
+    log("# phase 2 ok: K1, K2, K3, K4 bit-identical to their plain versions")
     return stats
+
+
+def _mimc(dev, rng, n: int) -> dict:
+    """K4 against the transcript's torch loop, bit for bit: at n lanes the
+    plain form and the tree's combine over n and n - 1 lanes (the odd last
+    lane permuted alone), at width 1 the plain form and state + digest;
+    then its ms at n beside the bound and the plain version's, and at
+    width 1 device us per launch and host us per call."""
+    from legosnark_tpu_torch.curve import bn254
+    from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.utils import transcript as ttr
+    from legosnark_tpu_torch.utils.bench import (edge_ints, launch_us,
+                                                 rand_below, timed_ms,
+                                                 word_err)
+
+    r = bn254.R
+    edge = edge_ints(r)
+    x, y = (fl.tensor(fl.ints_to_limbs(v + rand_below(rng, n - len(v), 2 * r)),
+                      dev) for v in (edge, edge[::-1]))
+    x1, y1 = x[:, -1:].contiguous(), y[:, -1:].contiguous()
+    cases = (("plain form", lambda: ttr.permute(x), lambda: ttr.permute_plain(x)),
+             ("combine", lambda: ttr.combine(x), lambda: ttr.combine_plain(x)),
+             ("combine odd", lambda: ttr.combine(x[:, 1:]),
+              lambda: ttr.combine_plain(x[:, 1:])),
+             ("width 1", lambda: ttr.permute(x1), lambda: ttr.permute_plain(x1)),
+             ("state + digest", lambda: ttr.permute(x1, y1),
+              lambda: ttr.permute_plain(x1, y1)))
+    err = 0
+    for what, fn, pfn in cases:
+        e = word_err(fn(), pfn())
+        log(f"# phase 2 mimc {what}: max_abs_err {e}")
+        err = max(err, e)
+    ms = timed_ms(lambda: ttr.permute(x), dev, 20)
+    plain_ms = timed_ms(lambda: ttr.permute_plain(x), dev, 1)
+    tb, by = bound(2 * LIMB_BYTES * n, MIMC_PRODUCTS * IMUL_PER_MONT * n)
+    dev_us, host_us = launch_us(lambda: ttr.permute(x1), dev)
+    plain1_ms = timed_ms(lambda: ttr.permute_plain(x1), dev, 2)
+    log(f"# phase 2 mimc n={n}: max_abs_err {err} kernel {ms:.4f} ms plain "
+        f"{plain_ms:.2f} ms bound {tb:.4f} ms ({by}); width 1: device "
+        f"{dev_us:.2f} us/launch host {host_us:.2f} us/call plain "
+        f"{plain1_ms:.2f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": tb, "bound_by": by, "ms_by_width": {1: dev_us / 1e3},
+            "host_ms_by_width": {1: host_us / 1e3},
+            "ms_by_width_plain": {1: plain1_ms}}
 
 
 def _narrow_widths(dev, Pc, Qc, stats) -> None:
@@ -822,6 +875,7 @@ def phase_fs(torch, dev, kernels, res) -> dict:
     check(ok, "Fiat-Shamir proof at n=1024 verifies")
     for name in MAIN_KERNELS:
         check(launches.get(name, 0) > 0, f"{name} launched on the FS path")
+    check(launches.get("mimc", 0) > 0, "K4 launched on the FS path")
     sc = pf.sc_proof
     bad = pf._replace(sc_proof=sc._replace(h_comms=Point(
         *(t.roll(1, 0) for t in sc.h_comms))))
@@ -854,6 +908,7 @@ def phase_hadamard(torch, np, dev, d: int, kernels) -> dict:
     for name in MAIN_KERNELS:
         check(launches.get(name, 0) > 0, f"{name} launched on the "
               f"Hadamard path")
+    check(launches.get("mimc", 0) > 0, "K4 launched on the Hadamard path")
     _cphad_host_checks(np, d, res["hadsc"])
     _cphadl_host_checks(np, d, res["lipmaa"])
     _hadamard_tampers(torch, dev, res)
@@ -1664,6 +1719,7 @@ KERNELS = {
                              "scripts/probe_conv.py:33", False),
     "limb_product_product": ("legosnark_tpu_torch/csrc/limb_product.cu",
                              "scripts/probe_conv.py:33", False),
+    "mimc": ("legosnark_tpu_torch/csrc/mimc.cu", None, True),
 }
 
 

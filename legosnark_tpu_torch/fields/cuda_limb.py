@@ -61,7 +61,8 @@ def mont_mul_plain(spec: FieldSpec, a, b):
 
 
 @functools.lru_cache(None)
-def _words(p: int):
+def field_words(p: int):
+    """The kernels' Field block: p, 2p and -p^-1 mod 2^32 as 17 words."""
     spec = FieldSpec(p)
     w = [(p >> (32 * k)) & 0xFFFFFFFF for k in range(NLIMBS)]
     w += [((2 * p) >> (32 * k)) & 0xFFFFFFFF for k in range(NLIMBS)]
@@ -88,7 +89,7 @@ def mont_mul(spec: FieldSpec, a, b):
         return out
     fn = kernels.function("mont_mul.cu", "lsk_mont_mul")
     err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[-1], total,
-             ctypes.cast(_words(spec.p), ctypes.c_void_p),
+             ctypes.cast(field_words(spec.p), ctypes.c_void_p),
              torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check("mont_mul.cu", err, "mont_mul")
     kernels.count("mont_mul", total)

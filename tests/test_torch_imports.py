@@ -153,11 +153,12 @@ def test_other_devices_raise_instead_of_falling_back():
 
 def test_kernel_sources_and_build_setup():
     """Every kernel source in kernels.SOURCES exists, targets sm_90a,
-    and says which TPU kernel it replaces."""
+    and says which TPU kernel it replaces, or that it replaces none."""
     assert "-gencode=arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     for name in kernels.SOURCES:
         text = (kernels.CSRC / name).read_text()
-        assert "Replaces the Pallas kernel" in text
+        assert ("Replaces the Pallas kernel" in text
+                or "Replaces no Pallas kernel" in text)
         assert "What bounds it" in text
     assert kernels.BUILD_DIR.parts[-2:] == ("build", "kernels")
     gitignore = (PKG.parent / ".gitignore").read_text().split()

@@ -5,6 +5,7 @@ machine without one. This file imports nothing of JAX, so it also runs
 where JAX is missing:
     python -m pytest tests/test_torch_kernels.py --noconftest -m requires_cuda
 """
+import numpy as np
 import pytest
 import torch
 
@@ -14,7 +15,8 @@ from legosnark_tpu_torch.curve import group as tg
 from legosnark_tpu_torch.fields import cuda_limb
 from legosnark_tpu_torch.fields import limb as fl
 from legosnark_tpu_torch.probes import mont_variants as mv
-from legosnark_tpu_torch.utils.bench import edge_ints
+from legosnark_tpu_torch.utils import transcript as ttr
+from legosnark_tpu_torch.utils.bench import edge_ints, rand_below
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -155,3 +157,28 @@ def test_p2_equals_plain(cuda, variant):
     torch.cuda.synchronize()
     assert kernels.launches[f"limb_product_{variant}"] == 1
     assert torch.equal(got, mv.limb_product_plain(a, b, variant))
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 1000, 1 << 16])
+def test_mimc_equals_plain(cuda, width):
+    """K4 against the torch loop: the plain form, permute(x + y) (at width
+    1 the absorb's state + digest) and the tree's combine at even and odd
+    m, each one launch."""
+    rng = np.random.default_rng(width)
+    r = bn254.R
+    edge = [0, 1, r - 1, r, 2 * r - 1]
+    xs = (edge + rand_below(rng, width, 2 * r))[:width]
+    ys = (edge[::-1] + rand_below(rng, width, 2 * r))[:width]
+    x, y = (fl.tensor(fl.ints_to_limbs(v), cuda) for v in (xs, ys))
+    cases = [(lambda: ttr.permute(x), lambda: ttr.permute_plain(x)),
+             (lambda: ttr.permute(x, y), lambda: ttr.permute_plain(x, y))]
+    for m in sorted({width, width - 1} - {0, 1}):
+        h = x[:, :m]
+        cases.append((lambda h=h: ttr.combine(h),
+                      lambda h=h: ttr.combine_plain(h)))
+    for fn, plain in cases:
+        kernels.reset_launches()
+        got = fn()
+        torch.cuda.synchronize()
+        assert kernels.launches == {"mimc": 1}
+        assert torch.equal(got, plain())
