@@ -30,7 +30,9 @@ double of a G1 MSM runs in kernels K2/K3.
 Spans (`utils/trace`): `msm` around each MSM (attributes: curve, rows,
 points, c, chunks), with the children `msm.digits` (signed digits and
 the negated sources), `msm.chunk` per chunk of windows (its window
-range) and `msm.horner`.
+range, and one count of the counter `msm.chunks`) and `msm.horner`;
+`msm.batch` around each fixed-base batch (curve, scalars, chunks), one
+count of `msm.batch_chunks` per chunk of `BATCH_CHUNK` scalars.
 """
 from __future__ import annotations
 
@@ -216,6 +218,7 @@ def msm(C: CurveOps, points: Point, scalars, c: int | None = None,
         for j in range(0, W, window_chunk):
             with trace.span("msm.chunk",
                             windows=(j, min(W, j + window_chunk))):
+                trace.count("msm.chunks")
                 parts.append(_window_sums(
                     C, src, mags[j : j + window_chunk],
                     negs[j : j + window_chunk], lead, 1 << (c - 1)))
@@ -277,19 +280,23 @@ def batch_scalar_mul(C: CurveOps, table: Point, scalars, c: int = 8,
     if W > table.x.shape[0]:
         raise ValueError("table too small for the scalar bit length")
     edims = table.x.dim() - 2
+    n = scalars.shape[-1]
     outs = []
-    for s0 in range(0, scalars.shape[-1], BATCH_CHUNK):
-        digits = _all_digits(fr_spec, scalars[..., s0 : s0 + BATCH_CHUNK],
-                             c, W)
-        m = digits.shape[-1]
+    with trace.span("msm.batch", curve="G1" if C.g1 else "G2", scalars=n,
+                    chunks=-(-n // BATCH_CHUNK)):
+        for s0 in range(0, n, BATCH_CHUNK):
+            trace.count("msm.batch_chunks")
+            digits = _all_digits(fr_spec, scalars[..., s0 : s0 + BATCH_CHUNK],
+                                 c, W)
+            m = digits.shape[-1]
 
-        def gather(a, digits=digits, m=m):
-            a = a[:W]
-            g = digits.view((W,) + (1,) * edims + (m,))
-            return torch.gather(a, -1, g.expand(a.shape[:-1] + (m,)))
+            def gather(a, digits=digits, m=m):
+                a = a[:W]
+                g = digits.view((W,) + (1,) * edims + (m,))
+                return torch.gather(a, -1, g.expand(a.shape[:-1] + (m,)))
 
-        outs.append(tree_reduce_leading(C, point_map(gather, table)))
-    return point_concat(outs)
+            outs.append(tree_reduce_leading(C, point_map(gather, table)))
+        return point_concat(outs)
 
 
 def tree_reduce_leading(C: CurveOps, p: Point) -> Point:

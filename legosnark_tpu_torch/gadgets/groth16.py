@@ -7,7 +7,10 @@ baseline of the `legogrothmatrix` example:
       u_i(tau), v_i(tau), w_i(tau) from the domain's Lagrange values at
       tau, all on the host in Python ints (one batched inversion); every
       key element from one fixed-base batch multiplication per curve on
-      the generator tables (`msm.generator_table`).
+      the generator tables (`msm.generator_table`). One span
+      `groth16.setup` (attributes: rows, vars, domain) holds the host
+      work, `groth16.qap` (the Lagrange values, the QAP and the key
+      scalars as limbs), and the batches' `msm.batch` spans.
   prove(pk, z): H = (Az * Bz - Cz) / Z by an inverse NTT, coset NTTs, a
       pointwise product, division by Z on the coset and an inverse coset
       NTT; then three MSMs. The blinding terms r delta, s delta and
@@ -149,34 +152,37 @@ def setup(r1cs: R1CS, seed: int = 0, device=None):
     m = len(r1cs.A)
     D = _domain(m)
     nv = r1cs.num_vars
-    lag = lagrange_at(tau, D)
-
-    # QAP: u_i(tau) = sum_j A[j][i] L_j(tau), likewise v and w
-    u, v, wv = [0] * nv, [0] * nv, [0] * nv
-    for rows, acc in ((r1cs.A, u), (r1cs.B, v), (r1cs.C, wv)):
-        for row, lj in zip(rows, lag):
-            for var, coef in row:
-                acc[var] = (acc[var] + coef * lj) % R
-
-    ginv = pow(gamma, -1, R)
-    dinv = pow(delta, -1, R)
     npub = r1cs.num_public + 1
-    comb = [(beta * a + alpha * b + c) % R for a, b, c in zip(u, v, wv)]
-    ic = [x * ginv % R for x in comb[:npub]]
-    lq = [x * dinv % R for x in comb[npub:]]
-    hq = [0] * (D - 1)
-    t = (pow(tau, D, R) - 1) * dinv % R
-    for i in range(D - 1):
-        hq[i] = t
-        t = t * tau % R
+    with trace.span("groth16.setup", rows=m, vars=nv, domain=D):
+        with trace.span("groth16.qap"):
+            lag = lagrange_at(tau, D)
 
-    def batch(C, scalars):
-        return msm_mod.batch_scalar_mul(
-            C, msm_mod.generator_table(C, dev),
-            fl.tensor(fl.ints_to_limbs(scalars), dev), c=8)
+            # QAP: u_i(tau) = sum_j A[j][i] L_j(tau), likewise v and w
+            u, v, wv = [0] * nv, [0] * nv, [0] * nv
+            for rows, acc in ((r1cs.A, u), (r1cs.B, v), (r1cs.C, wv)):
+                for row, lj in zip(rows, lag):
+                    for var, coef in row:
+                        acc[var] = (acc[var] + coef * lj) % R
 
-    g1 = batch(G1, [alpha, beta, delta] + u + v + hq + lq + ic)
-    g2 = batch(G2, [beta, gamma, delta] + v)
+            ginv = pow(gamma, -1, R)
+            dinv = pow(delta, -1, R)
+            comb = [(beta * a + alpha * b + c) % R
+                    for a, b, c in zip(u, v, wv)]
+            ic = [x * ginv % R for x in comb[:npub]]
+            lq = [x * dinv % R for x in comb[npub:]]
+            hq = [0] * (D - 1)
+            t = (pow(tau, D, R) - 1) * dinv % R
+            for i in range(D - 1):
+                hq[i] = t
+                t = t * tau % R
+            s1 = fl.tensor(fl.ints_to_limbs(
+                [alpha, beta, delta] + u + v + hq + lq + ic), dev)
+            s2 = fl.tensor(fl.ints_to_limbs([beta, gamma, delta] + v), dev)
+
+        g1 = msm_mod.batch_scalar_mul(G1, msm_mod.generator_table(G1, dev),
+                                      s1, c=8)
+        g2 = msm_mod.batch_scalar_mul(G2, msm_mod.generator_table(G2, dev),
+                                      s2, c=8)
     o_h = 3 + 2 * nv
     o_l = o_h + D - 1
     o_ic = o_l + nv - npub

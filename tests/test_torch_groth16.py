@@ -12,7 +12,10 @@ Fast tier, on one module-scoped run of `legogrothmatrix.run(2, "cpu")`
   draws of r and s, which holds the NTT quotient pipeline and every MSM
   without a pairing;
 * with a window budget that splits prove's MSMs into chunks, the example
-  gives the same key and proof, bit for bit;
+  gives the same key and proof, bit for bit, untraced (the module run is
+  traced), and a traced prove counts each MSM's chunks (`msm.chunks`);
+* keygen's spans: `groth16.setup`, its host QAP and one fixed-base batch
+  per curve with its chunks (`msm.batch_chunks`);
 * the example prints the proof size and VERIFY OK; one `pairing_checks`
   call accepts the honest proof and rejects a changed public output and
   A swapped with C;
@@ -191,8 +194,12 @@ def test_traced_run_spans(run):
     three NTTs of H, the G1 and G2 MSMs and one pairing product."""
     spans = run["spans"]
     by_id = {s.id: s for s in spans}
-    phases = {s.name: s for s in spans if s.parent is None}
+    roots = [s for s in spans if s.parent is None]
+    phases = {s.name: s for s in roots if s.name != "msm.batch"}
     assert set(phases) == {"keygen", "prove", "verify", "commit_emul"}
+    # the emulated commitment's bases, batched between verify and commit
+    assert [s.attrs["curve"] for s in roots if s.name == "msm.batch"] == [
+        "G1"]
 
     def under(phase, name):
         out = []
@@ -218,6 +225,61 @@ def test_traced_run_spans(run):
     assert pc.attrs == {"pairs": 4, "products": 1}
     assert [s.name for s in spans if s.parent == pc.id] == [
         "pairing.miller", "pairing.final_exp"]
+
+
+def test_keygen_spans_setup_qap_and_one_batch_per_curve(run):
+    """keygen holds one `groth16.setup` span (rows, vars, domain) with
+    the host QAP and one fixed-base batch per curve, each of
+    ceil(scalars / BATCH_CHUNK) chunks, as many counts of
+    `msm.batch_chunks`."""
+    spans, r1cs, D = run["spans"], run["r1cs"], run["pk"].domain
+    (keygen,) = [s for s in spans if s.name == "keygen"]
+    (st,) = [s for s in spans if s.parent == keygen.id]
+    nv = r1cs.num_vars
+    assert (st.name, st.attrs) == ("groth16.setup", {
+        "rows": len(r1cs.A), "vars": nv, "domain": D})
+    kids = [s for s in spans if s.parent == st.id]
+    assert [s.name for s in kids] == ["groth16.qap", "msm.batch",
+                                      "msm.batch"]
+    total = 0
+    for b, curve, n in ((kids[1], "G1", 3 + 3 * nv + D - 1),
+                        (kids[2], "G2", 3 + nv)):
+        chunks = -(-n // msm.BATCH_CHUNK)
+        assert b.attrs == {"curve": curve, "scalars": n, "chunks": chunks}
+        assert b.counts == {"msm.batch_chunks": chunks}
+        total += chunks
+    assert st.counts == {"msm.batch_chunks": total}
+
+
+def test_chunked_prove_counts_msm_chunks(run, monkeypatch):
+    """Prove again with a window budget that splits its three MSMs: each
+    `msm` span holds ceil(W / windows_per_chunk) chunks and as many counts
+    of `msm.chunks`, prove's total is their sum, and the proof is the
+    module run's, bit for bit."""
+    pk, r1cs = run["pk"], run["r1cs"]
+    cols = pk.a_query.x.shape[-1] + 1                 # z | r, z | s
+    c_cols = (pk.l_query.x.shape[-1] + pk.h_query.x.shape[-1] + 3)
+    monkeypatch.setattr(msm, "WINDOW_BUDGET",
+                        8 * msm.window_bytes(G2, (), cols))
+    want = []
+    for C, lead, m in ((G1, (2,), cols), (G2, (), cols), (G1, (), c_cols)):
+        W = -(-(bn254.FR.bits + 1) // config.default_window(m))
+        want.append(-(-W // msm.windows_per_chunk(C, W, lead, m)))
+    assert min(want) > 1
+    trace.drain()
+    trace.enable()
+    try:
+        with trace.span("prove") as top:
+            pf = groth16.prove(pk, r1cs, run["z"], seed=N)
+    finally:
+        trace.disable()
+    msms = [s for s in trace.drain() if s.name == "msm"]
+    assert [s.attrs["chunks"] for s in msms] == want
+    assert [s.counts["msm.chunks"] for s in msms] == want
+    assert top.counts["msm.chunks"] == sum(want)
+    for f, want_pt in run["pf"]._asdict().items():
+        assert all(torch.equal(a, b)
+                   for a, b in zip(getattr(pf, f), want_pt)), f
 
 
 def test_example_prints_proof_size_and_verify_ok(run):

@@ -7,9 +7,9 @@ card case for their clock.
   counters are recorded per span, and `spanned` and
   `Benchmarkable.phase` open spans.
 * `kernels.count` records exact widths and K3's `times`.
-* The transcript, the NTT and the MSM emit their spans at small sizes,
-  and their challenges and outputs are bit-identical with tracing on and
-  off. (The pairing, sumcheck, sigma and Groth16 spans are held on the
+* The transcript, the NTT, the MSM and the fixed-base batch emit their
+  spans and chunk counters at small sizes, and their challenges and
+  outputs are bit-identical with tracing on and off. (The pairing, sumcheck, sigma and Groth16 spans are held on the
   module fixtures of `test_torch_verify.py` and `test_torch_groth16.py`,
   which run traced.)
 * On a card (`requires_cuda`): a span around one lone K1 launch and a
@@ -198,6 +198,29 @@ def test_msm_spans_per_chunk_and_outputs_on_and_off():
     assert {s.parent for s in (digits, c0, c1, horner)} == {top.id}
     assert (c0.attrs, c1.attrs) == ({"windows": (0, 16)},
                                     {"windows": (16, 32)})
+    assert top.counts == {"msm.chunks": 2}
+    assert c0.counts == c1.counts == {"msm.chunks": 1}
+
+
+def test_batch_spans_per_chunk_and_outputs_on_and_off(monkeypatch):
+    """A fixed-base batch of 5 scalars in chunks of 2: one `msm.batch`
+    span with 3 chunks and 3 counts of `msm.batch_chunks`, and the points
+    of the unchunked batch, tracing on or off."""
+    table = msm.generator_table(G1, CPU)
+    scalars = fl.tensor(fl.ints_to_limbs([3, 5, 7, 11, 13]), CPU)
+    whole = msm.batch_scalar_mul(G1, table, scalars)
+    monkeypatch.setattr(msm, "BATCH_CHUNK", 2)
+
+    def run():
+        return msm.batch_scalar_mul(G1, table, scalars)
+
+    off = run()
+    on, spans = _traced_call(run)
+    assert all(torch.equal(x, y) and torch.equal(x, w)
+               for x, y, w in zip(on, off, whole))
+    assert [(s.name, s.attrs, s.counts, s.parent) for s in spans] == [
+        ("msm.batch", {"curve": "G1", "scalars": 5, "chunks": 3},
+         {"msm.batch_chunks": 3}, None)]
 
 
 @pytest.fixture

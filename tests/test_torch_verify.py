@@ -169,8 +169,10 @@ def test_hv_statement_spans(hv):
     spans = hv["spans"]
     by_id = {s.id: s for s in spans}
     top = collections.Counter(s.name for s in spans if s.parent is None)
-    assert top == {"msm": 2, "sumcheck.prove": 1, "sumcheck.replay": 1,
-                   "sigma.verify": 1, "pairing.checks": 1}
+    # keygen's two fixed-base batches, then the statement's spans
+    assert top == {"msm.batch": 2, "msm": 2, "sumcheck.prove": 1,
+                   "sumcheck.replay": 1, "sigma.verify": 1,
+                   "pairing.checks": 1}
     (prover,) = [s for s in spans if s.name == "sumcheck.prove"]
     assert _children(spans, prover) == ["sumcheck.round"] * 2 + [
         "sigma.smul", "poly.prove"]
