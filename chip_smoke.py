@@ -3,7 +3,7 @@
 
 Phases, each printing its result and times on its own line:
   1. start-up: versions, the card and its power limit, the kernel build
-     (fails if K2, K3 or P1b spill);
+     (fails if K2, K3, K4, K5, K6 or P1b spill);
   2. kernels K1 (Montgomery product), K2 (G1 add) and K3 (G1 double,
      also with times = 4 and 17 doublings in one launch) against their
      plain PyTorch versions at 2^20 elements, bit for bit, with edge
@@ -13,7 +13,11 @@ Phases, each printing its result and times on its own line:
      against the transcript's torch loop at 2^20 (the plain form and the
      tree's combine, odd and even) and at width 1 (the plain form and
      state + digest), timed at 2^20 beside its bound and at width 1 in
-     device and host us;
+     device and host us; K5 (G2 add) and K6 (G2 double, times 1, 4 and
+     17) against their plain versions at 2^20 points k_i*G2, bit for bit,
+     the group law checked on 16 against the affine host reference,
+     timed beside their bounds, and at widths 1, 2, 8 and 32 (K6 also
+     with times = 17) bit for bit with device and host us;
   3. a 2^20-point MSM with c = 17 (signed digits) checked by a trapdoor:
      points k_i*G with known k_i, expected (sum s_i k_i mod r)*G;
   4. CPmmp at n = 4 on the card against the same run on the CPU, element
@@ -143,6 +147,9 @@ MIMC_PRODUCTS = 330
 DOUBLE_TIMES = (4, 17)
 #: the main path's narrow launch widths (Horner tails, tables, verifier)
 NARROW_WIDTHS = (1, 2, 32, 1 << 10)
+#: K5/K6's narrow widths: the G2 Horner steps of one to a few MSM rows,
+#: the generator table's chain, the key's scalar multiplications
+G2_NARROW_WIDTHS = (1, 2, 8, 32)
 #: the main path's kernels, whose launches phases 5 and 7 count
 MAIN_KERNELS = ("mont_mul", "g1_add", "g1_double")
 #: phase 11's ceiling on Groth16's peak device memory at n = 128 (of the
@@ -290,7 +297,7 @@ def phase_startup(torch, kernels) -> dict:
                 if "registers" in ln or "spill" in ln]
         log(f"# build {name}: {rec['seconds']:.1f}s; {'; '.join(regs)}")
     for src, what in (("g1.cu", "K2 and K3"), ("mont_tc.cu", "P1b"),
-                      ("mimc.cu", "K4")):
+                      ("mimc.cu", "K4"), ("g2.cu", "K5 and K6")):
         check(not re.search(r"[1-9][0-9]* bytes spill", log_[src]["log"]),
               f"{what} build without spills")
     log(f"# phase 1 ok: kernels built in {build_s:.1f}s")
@@ -393,9 +400,95 @@ def phase_kernels(torch, np, dev, n: int) -> dict:
             f"{ms:.4f} ms bound {tb:.4f} ms ({by})")
     _narrow_widths(dev, Pc, Qc, stats)
     stats["mimc"] = _mimc(dev, rng, n)
+    stats.update(_g2_kernels(torch, dev, rng, n))
     for name, st in stats.items():
         check(st["max_abs_err"] == 0, f"{name} equals its plain version")
-    log("# phase 2 ok: K1, K2, K3, K4 bit-identical to their plain versions")
+    log("# phase 2 ok: K1-K6 bit-identical to their plain versions")
+    return stats
+
+
+def _g2_kernels(torch, dev, rng, n: int) -> dict:
+    """K5 and K6 (times 1, 4, 17) against their plain versions at n points
+    k_i*G2, bit for bit, with the second operand mixing Q = P, -P, the
+    identity and another point, and the group law checked against the
+    affine host reference on 16 of them; their ms beside the bounds and
+    the plain versions'; then K5, K6 and K6 with times = 17 at widths 1-32,
+    bit for bit, with device us per launch and host us per wrapper call."""
+    from legosnark_tpu_torch import kernels
+    from legosnark_tpu_torch.curve import cuda_group, msm
+    from legosnark_tpu_torch.curve.group import (G2, Point, g2_generator,
+                                                 g2_to_ints)
+    from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.utils.bench import (launch_us, rand_below,
+                                                 timed_ms, word_err)
+
+    ks = fl.tensor(fl.ints_to_limbs(rand_below(rng, n, R)), dev)
+    table = msm.fixed_base_table(G2, g2_generator((), dev), c=8)
+    P = msm.batch_scalar_mul(G2, table, ks, c=8)
+    Qp = Point(*(t.roll(1, -1) for t in P))
+    sel = torch.arange(n, device=dev) % 4
+    Qp = G2.select(sel == 0, P, Qp)
+    Qp = G2.select(sel == 1, G2.neg(P), Qp)
+    Qp = G2.select(sel == 2, G2.identity((n,), dev), Qp)
+    Pc = tuple(t.contiguous() for t in P)
+    Qc = tuple(t.contiguous() for t in Qp)
+    add, add_plain = cuda_group.g2_add_points, cuda_group.g2_add_points_plain
+    dbl, dbl_plain = (cuda_group.g2_double_point,
+                      cuda_group.g2_double_point_plain)
+
+    kernels.reset_launches()
+    got, gotd = add(Pc, Qc), dbl(Pc)
+    check(dict(kernels.launches) == {"g2_add": 1, "g2_double": 1},
+          "K5 and K6 counted under g2_add and g2_double alone")
+    m = 16
+    pa, qa, sa, da = (g2_to_ints(Point(*(t[..., :m] for t in x)))
+                      for x in (Pc, Qc, got, gotd))
+    for i in range(m):
+        check(sa[i] == aff2_add(pa[i], qa[i]), f"K5 value {i}")
+        check(da[i] == aff2_add(pa[i], pa[i]), f"K6 value {i}")
+    check(sa[1] is None, "P + (-P) is the identity on G2")
+    stats = {}
+    for name, fn, pfn, nin, nmul in (
+            ("g2_add", lambda: add(Pc, Qc), lambda: add_plain(Pc, Qc), 6, 42),
+            ("g2_double", lambda: dbl(Pc), lambda: dbl_plain(Pc), 3, 25)):
+        err = max(word_err(g, w) for g, w in zip(fn(), pfn()))
+        ms = timed_ms(fn, dev, 20)
+        plain_ms = timed_ms(pfn, dev, 1)
+        tb, by = bound((nin + 3) * 2 * LIMB_BYTES * n,
+                       nmul * IMUL_PER_MONT * n)
+        stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": tb, "bound_by": by}
+        log(f"# phase 2 {name} n={n}: max_abs_err {err} kernel {ms:.4f} ms "
+            f"plain {plain_ms:.2f} ms bound {tb:.4f} ms ({by})")
+    for k in DOUBLE_TIMES:
+        err = max(word_err(g, w) for g, w in zip(dbl(Pc, k),
+                                                  dbl_plain(Pc, k)))
+        ms = timed_ms(lambda: dbl(Pc, k), dev, 5)
+        tb, by = bound(6 * 2 * LIMB_BYTES * n, k * 25 * IMUL_PER_MONT * n)
+        st = stats["g2_double"]
+        st[f"times{k}"] = {"max_abs_err": err, "ms": ms, "bound_ms": tb,
+                           "bound_by": by}
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        log(f"# phase 2 g2_double times={k} n={n}: max_abs_err {err} kernel "
+            f"{ms:.4f} ms bound {tb:.4f} ms ({by})")
+    variants = (("g2_add", add, add_plain, ""),
+                ("g2_double", lambda p, q: dbl(p), lambda p, q: dbl_plain(p),
+                 ""),
+                ("g2_double", lambda p, q: dbl(p, 17),
+                 lambda p, q: dbl_plain(p, 17), "_times17"))
+    for w in G2_NARROW_WIDTHS:
+        p = tuple(t[..., :w].contiguous() for t in Pc)
+        q = tuple(t[..., :w].contiguous() for t in Qc)
+        for name, fn, pfn, key in variants:
+            err = max(word_err(g, v) for g, v in zip(fn(p, q), pfn(p, q)))
+            st = stats[name]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            dev_us, host_us = launch_us(lambda: fn(p, q), dev)
+            st.setdefault("ms_by_width" + key, {})[w] = dev_us / 1e3
+            st.setdefault("host_ms_by_width" + key, {})[w] = host_us / 1e3
+            log(f"# phase 2 {name}{key.replace('_', ' ')} width {w}: "
+                f"max_abs_err {err} device {dev_us:.2f} us/launch host "
+                f"{host_us:.2f} us/call")
     return stats
 
 
@@ -1277,7 +1370,7 @@ def phase_groth16(torch, np, dev, n: int, kernels) -> dict:
     check(res["ok"], "the Groth16 proof verifies")
     check(0 < peaks.get("run", 0) < GROTH16_PEAK_LIMIT,
           f"the run's peak device memory below {GROTH16_PEAK_LIMIT >> 30} GiB")
-    for name in MAIN_KERNELS:
+    for name in MAIN_KERNELS + ("g2_add", "g2_double"):
         check(launches.get(name, 0) > 0,
               f"{name} launched on the Groth16 path")
     _groth16_host_checks(np, res)
@@ -1720,6 +1813,8 @@ KERNELS = {
     "limb_product_product": ("legosnark_tpu_torch/csrc/limb_product.cu",
                              "scripts/probe_conv.py:33", False),
     "mimc": ("legosnark_tpu_torch/csrc/mimc.cu", None, True),
+    "g2_add": ("legosnark_tpu_torch/csrc/g2.cu", None, True),
+    "g2_double": ("legosnark_tpu_torch/csrc/g2.cu", None, True),
 }
 
 

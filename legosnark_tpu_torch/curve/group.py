@@ -5,9 +5,9 @@ complete formulas for a = 0 (eprint 2015/1060, Algorithms 7 and 9), one
 straight-line sequence for generic adds, doublings and the identity
 (0 : 1 : 0). All functions are batched over leading axes plus the vector
 axis, and generic over the field ops, so the same code serves G1 (Fq) and
-G2 (Fq2). On G1, `CurveOps.add`/`double` go to kernels K2/K3
-(`cuda_group`); G2 runs the formulas below in torch code, each Fq product
-in kernel K1.
+G2 (Fq2). `CurveOps.add`/`double` go to kernels K2/K3 on G1 and K5/K6 on
+G2 (`cuda_group`); their plain versions, which CPU tensors take, run the
+formulas below (`rcb_add`, `rcb_double`) in torch code.
 """
 from __future__ import annotations
 
@@ -102,13 +102,13 @@ def rcb_double(F, b3, p) -> Point:
 class CurveOps:
     """Group-law ops for y^2 = x^3 + b over a field-ops instance.
 
-    b and b3 are Python ints (G1) or int pairs (G2). g1=True sends add and
-    double to the G1 kernels of `cuda_group`."""
+    b is a Python int (G1) or an int pair (G2). add and double go to the
+    G1 kernels of `cuda_group` (K2/K3) where g1=True, else to the G2
+    kernels (K5/K6); on CPU tensors, to their plain versions."""
 
-    def __init__(self, field, b, b3, g1: bool = False):
+    def __init__(self, field, b, g1: bool = False):
         self.F = field
         self.b = b
-        self.b3 = b3
         self.g1 = g1
 
     # -- constructors ------------------------------------------------------
@@ -125,26 +125,21 @@ class CurveOps:
 
     # -- group law ---------------------------------------------------------
     def add(self, p: Point, q: Point) -> Point:
-        if self.g1:
-            from . import cuda_group
-            c = [t.contiguous() for t in torch.broadcast_tensors(*p, *q)]
-            return Point(*cuda_group.add_points(c[:3], c[3:]))
-        dev = p.x.device
-        return rcb_add(self.F, self.F.const(self.b3, dev), p, q)
+        from . import cuda_group
+        c = [t.contiguous() for t in torch.broadcast_tensors(*p, *q)]
+        add = cuda_group.add_points if self.g1 else cuda_group.g2_add_points
+        return Point(*add(c[:3], c[3:]))
 
     def double(self, p: Point, times: int = 1) -> Point:
-        """[2^times] p for times >= 1: one K3 launch on G1, a loop of
-        doublings in torch code on G2."""
+        """[2^times] p for times >= 1: one K3 launch on G1, one K6 launch
+        on G2."""
         if times < 1:
             raise ValueError(f"double: times must be >= 1, got {times}")
-        if self.g1:
-            from . import cuda_group
-            c = [t.contiguous() for t in torch.broadcast_tensors(*p)]
-            return Point(*cuda_group.double_point(c, times))
-        b3 = self.F.const(self.b3, p.x.device)
-        for _ in range(times):
-            p = rcb_double(self.F, b3, p)
-        return p
+        from . import cuda_group
+        c = [t.contiguous() for t in torch.broadcast_tensors(*p)]
+        dbl = (cuda_group.double_point if self.g1
+               else cuda_group.g2_double_point)
+        return Point(*dbl(c, times))
 
     def neg(self, p: Point) -> Point:
         return Point(p.x, self.F.neg(p.y), p.z)
@@ -288,8 +283,8 @@ FQ_OPS = FqOps(bn254.FQ)
 FQ2_OPS = Fq2Ops(FQ_OPS)
 FR_OPS = FqOps(bn254.FR)
 
-G1 = CurveOps(FQ_OPS, bn254.B_G1, bn254.B3_G1, g1=True)
-G2 = CurveOps(FQ2_OPS, bn254.B_G2, bn254.B3_G2)
+G1 = CurveOps(FQ_OPS, bn254.B_G1, g1=True)
+G2 = CurveOps(FQ2_OPS, bn254.B_G2)
 
 
 def g1_generator(shape=(), device=None) -> Point:

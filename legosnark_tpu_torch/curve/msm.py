@@ -10,7 +10,8 @@ JAX package:
     3. window sum = sum_{t=1}^{2^(c-1)} S[first index with mag >= t]
        (torch.searchsorted, a gather, and a tree sum)
   then a Horner combine over the windows with c doublings each (one
-  `CurveOps.double(acc, times=c)` call, one K3 launch on G1).
+  `CurveOps.double(acc, times=c)` call, one K3 launch on G1, one K6
+  launch on G2).
 
 The windows run in chunks, the counterpart of the JAX package's
 `_window_chunk` and its `lax.map` over windows: the windows of a chunk
@@ -25,7 +26,7 @@ boundary phase of an unsigned 16-bit window): the window count is
 ceil((bits + 1) / c), so the top window always absorbs the last carry.
 Step 1 gathers from [P | -P], so one gather both sorts and negates, in
 descending order of mag, so that step 2 is a prefix scan. Every add and
-double of a G1 MSM runs in kernels K2/K3.
+double of a G1 MSM runs in kernels K2/K3, of a G2 MSM in K5/K6.
 
 Spans (`utils/trace`): `msm` around each MSM (attributes: curve, rows,
 points, c, chunks), with the children `msm.digits` (signed digits and
@@ -54,17 +55,18 @@ from .group import CurveOps, Point, point_concat, point_map, scan
 WINDOW_BUDGET = 16 << 30
 #: copies of a window's gathered coordinates live at once at the peak of
 #: its prefix scan: the gathered points, the scan's contiguous operands,
-#: its levels and its output. K2 holds no temporaries; the G2 group law
-#: in torch code holds its products and the int64 columns of its
-#: additions beside them. Measured on the H100 at Groth16's n = 128
-#: shapes (`scripts/profile_msm_stages_torch.py --groth16`): 3.48-3.67
-#: on G1, 8.25-8.33 on G2.
+#: its levels and its output; K2 and K5 hold no temporaries. Measured on
+#: the H100 at Groth16's n = 128 shapes (`scripts/profile_msm_stages_torch.py
+#: --groth16`): 3.48-3.67 on G1; on G2 8.25-8.33 while its law ran in
+#: torch code (its products and int64 columns beside the copies), 3.47-3.58
+#: on K5, which G2's value has yet to follow (it sets the chunking).
 LIVE_COPIES_G1 = 4
 LIVE_COPIES_G2 = 9
 #: scalars per chunk of `batch_scalar_mul`: a few GB of gathered table
-#: points and G2 temporaries at most. Smaller chunks leave a G2 batch
-#: bound by the host's dispatch (measured on the H100 at Groth16's n = 128
-#: key batches: `scripts/profile_msm_stages_torch.py --batch`)
+#: points at most. Smaller chunks left a G2 batch bound by the host's
+#: dispatch while the G2 law ran in torch code (measured on the H100 at
+#: Groth16's n = 128 key batches: `scripts/profile_msm_stages_torch.py
+#: --batch`)
 BATCH_CHUNK = 1 << 16
 
 
@@ -261,9 +263,8 @@ def fixed_base_table(C: CurveOps, base: Point, c: int = 8,
 @functools.lru_cache(None)
 def generator_table(C: CurveOps, device: torch.device) -> Point:
     """`fixed_base_table` of C's generator with c = 8, built once per
-    curve and device: on G2 it is 248 sequential doublings in torch code,
-    which every keygen of a process would otherwise repeat. Callers must
-    not write into it."""
+    curve and device, which every keygen of a process would otherwise
+    repeat. Callers must not write into it."""
     from .group import g1_generator, g2_generator
     gen = g1_generator if C.g1 else g2_generator
     return fixed_base_table(C, gen((), device), c=8)
@@ -274,8 +275,7 @@ def batch_scalar_mul(C: CurveOps, table: Point, scalars, c: int = 8,
     """[k_i * base] for canonical scalars [8, n] with a `fixed_base_table`:
     per scalar, one table point per window and a tree sum over windows.
     Runs in chunks of `BATCH_CHUNK` scalars so the [W, .., chunk]
-    gathered parts and, on G2, the torch group law's temporaries stay
-    bounded."""
+    gathered parts stay bounded."""
     W = fl.num_windows(fr_spec, c)
     if W > table.x.shape[0]:
         raise ValueError("table too small for the scalar bit length")

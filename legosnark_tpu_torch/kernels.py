@@ -11,8 +11,8 @@ The first kernel launch builds everything; `build()` does it explicitly.
 `fields/cuda_limb.py`, `curve/cuda_group.py`, `utils/transcript.py` and
 `probes/mont_variants.py`;
 `launch_widths` splits them by exact width (elements per launch) and
-`times` (the doublings of one K3 launch; 1 for every other kernel). Both
-go up only through `count`, where a wrapper launches.
+`times` (the doublings of one K3 or K6 launch; 1 for every other
+kernel). Both go up only through `count`, where a wrapper launches.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("mont_mul.cu", "g1.cu", "mont_sos.cu", "mont_tc.cu",
-           "limb_product.cu", "mimc.cu")
+           "limb_product.cu", "mimc.cu", "g2.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,8 @@ _SIGNATURES = {
     "lsk_mont_mul": [_P, _P, _P, _LL, _LL, _P, _P],
     "lsk_g1_add": [_P] * 9 + [_LL, _LL, _P, _P],
     "lsk_g1_double": [_P] * 6 + [_LL, _LL, ctypes.c_int, _P, _P],
+    "lsk_g2_add": [_P] * 9 + [_LL, _LL, _P, _P],
+    "lsk_g2_double": [_P] * 6 + [_LL, _LL, ctypes.c_int, _P, _P],
     "lsk_mont_mul_sos": [_P, _P, _P, _LL, _LL, _P, _P],
     "lsk_mont_mul_tc": [_P, _P, _P, _LL, _LL, _P, _P],
     "lsk_limb_product": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
@@ -62,7 +64,7 @@ def reset_launches() -> None:
 
 def count(name: str, total: int, times: int = 1) -> None:
     """Count one launch of kernel `name` over `total` >= 1 elements,
-    `times` steps each (K3's doublings)."""
+    `times` steps each (K3's and K6's doublings)."""
     launches[name] += 1
     launch_widths[name][(total, times)] += 1
 

@@ -101,6 +101,96 @@ def test_k2_k3_equal_plain(cuda, n):
                 assert torch.equal(got, want)
 
 
+def _g2_operands(cuda, n):
+    """Coordinates [2, 8, n] of n points k*G2 (k = 1..n) with the identity
+    and two off-curve points of edge coordinates (0 and 2q - 1) mixed in,
+    a second operand that is P itself, -P, the identity or a neighbour,
+    and where P, and P and Q both, lie on the curve."""
+    table = msm.fixed_base_table(tg.G2, tg.g2_generator((), cuda), c=8)
+    ks = fl.tensor(fl.ints_to_limbs(range(1, n + 1)), cuda)
+    P = msm.batch_scalar_mul(tg.G2, table, ks, c=8)
+    lo, hi = (fl.tensor(fl.ints_to_limbs([v, v]), cuda).T.reshape(2, 8, 1)
+              for v in (0, 2 * bn254.Q - 1))
+    kind = torch.arange(n, device=cuda) % 7
+    P = tg.G2.select(kind == 4, tg.G2.identity((n,), cuda), P)
+    P = tg.G2.select(kind == 5, tg.Point(hi, lo, hi), P)
+    P = tg.G2.select(kind == 6, tg.Point(lo, hi, hi), P)
+    sel = torch.arange(n, device=cuda) % 4
+    Q = tg.Point(*(t.roll(1, -1) for t in P))
+    Q = tg.G2.select(sel == 0, P, Q)
+    Q = tg.G2.select(sel == 1, tg.G2.neg(P), Q)
+    Q = tg.G2.select(sel == 2, tg.G2.identity((n,), cuda), Q)
+    on_p = kind < 5
+    on_q = torch.where(sel == 3, on_p.roll(1, -1), on_p | (sel == 2))
+    return (tuple(t.contiguous() for t in P),
+            tuple(t.contiguous() for t in Q), on_p, on_p & on_q)
+
+
+@pytest.mark.parametrize("n", [1, 31, 1000])
+def test_k5_k6_equal_plain(cuda, n):
+    """K5 and K6 (times 1, 4, 17) bit for bit against their plain versions,
+    flat and with a leading batch axis ([2, 2, 8, n / 2]); results of
+    on-curve inputs on the curve; each one launch counted under g2_add /
+    g2_double and none under the G1 names."""
+    p, q, on_p, on_pq = _g2_operands(cuda, n)
+    cases = [(p, q, on_p, on_pq)]
+    if n % 2 == 0:
+        def split(t):
+            return t.view(2, 8, 2, n // 2).permute(2, 0, 1, 3).contiguous()
+        cases.append((tuple(map(split, p)), tuple(map(split, q)),
+                      on_p.view(2, n // 2), on_pq.view(2, n // 2)))
+    for p, q, on_p, on_pq in cases:
+        kernels.reset_launches()
+        s = cuda_group.g2_add_points(p, q)
+        torch.cuda.synchronize()
+        assert kernels.launches == {"g2_add": 1}
+        assert kernels.launch_widths["g2_add"] == {(n, 1): 1}
+        for got, want in zip(s, cuda_group.g2_add_points_plain(p, q)):
+            assert torch.equal(got, want)
+        assert tg.G2.on_curve(tg.Point(*s))[on_pq].all()
+        if n >= 3 and s[0].dim() == 3:   # P + (-P) at index 1
+            assert tg.g2_to_ints(tg.Point(*(t[..., 1:2] for t in s))) == [None]
+        for times in (1, 4, 17):
+            kernels.reset_launches()
+            d = cuda_group.g2_double_point(p, times)
+            torch.cuda.synchronize()
+            assert kernels.launches == {"g2_double": 1}
+            assert kernels.launch_widths["g2_double"] == {(n, times): 1}
+            for got, want in zip(d, cuda_group.g2_double_point_plain(p,
+                                                                     times)):
+                assert torch.equal(got, want)
+            assert tg.G2.on_curve(tg.Point(*d))[on_p].all()
+
+
+def test_g2_msm_span_counts_k5_k6(cuda):
+    """A G2 MSM on the card runs its group law on K5/K6 alone (no K2/K3
+    launch in its span) and gives the point the same MSM gives on the CPU
+    (as affine integers: the sort orders equal digits by device, so the
+    sums' projective coordinates differ)."""
+    from legosnark_tpu_torch.utils import trace
+
+    n = 40
+    table = msm.fixed_base_table(tg.G2, tg.g2_generator((), cuda), c=8)
+    P = msm.batch_scalar_mul(tg.G2, table, fl.tensor(
+        fl.ints_to_limbs(range(3, n + 3)), cuda), c=8)
+    s = fl.tensor(fl.ints_to_limbs([(7 ** k) % bn254.R for k in range(n)]),
+                  cuda)
+    trace.enable()
+    try:
+        got = msm.msm(tg.G2, P, s, c=5)
+        torch.cuda.synchronize()
+        spans = [sp for sp in trace.drain() if sp.name == "msm"]
+    finally:
+        trace.disable()
+    assert len(spans) == 1 and spans[0].attrs["curve"] == "G2"
+    launches = spans[0].launches
+    assert launches["g2_add"] > 0 and launches["g2_double"] > 0
+    assert launches["g1_add"] == launches["g1_double"] == 0
+    want = msm.msm(tg.G2, tg.Point(*(t.cpu() for t in P)), s.cpu(), c=5)
+    assert tg.g2_to_ints(tg.Point(*(t.cpu() for t in got))) == \
+        tg.g2_to_ints(want)
+
+
 @pytest.mark.parametrize("spec", [bn254.FR, bn254.FQ], ids=["Fr", "Fq"])
 def test_p1_equals_plain_and_k1(cuda, spec):
     gen = torch.Generator().manual_seed(2)

@@ -104,12 +104,17 @@ def test_launch_rise_and_counters_per_span(traced):
         trace.count("mimc.permute")
         with trace.span("inner") as inner:
             kernels.count("g1_double", 4, 3)
+            kernels.count("g2_double", 1, 17)
             kernels.count("mont_mul", 1)
             trace.count("mimc.permute", 2)
         kernels.count("g1_add", 2)
+        kernels.count("g2_add", 6)
+        kernels.count("g2_add", 3)
     trace.count("mimc.permute")          # no span open: dropped
-    assert inner.launches == {"mont_mul": 1, "g1_add": 0, "g1_double": 1}
-    assert outer.launches == {"mont_mul": 2, "g1_add": 1, "g1_double": 1}
+    assert inner.launches == {"mont_mul": 1, "g1_add": 0, "g1_double": 1,
+                              "g2_add": 0, "g2_double": 1}
+    assert outer.launches == {"mont_mul": 2, "g1_add": 1, "g1_double": 1,
+                              "g2_add": 2, "g2_double": 1}
     assert inner.counts == {"mimc.permute": 2}
     assert outer.counts == {"mimc.permute": 3}
     kernels.reset_launches()
