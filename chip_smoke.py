@@ -24,21 +24,17 @@ Phases, each printing its result and times on its own line:
      for element: the honest-verifier proof, the Fiat-Shamir in-clear
      proof and the Fiat-Shamir committed proof (the transcript is
      deterministic), each verified true on both devices;
-  5. the main path: CPmmp honest-verifier at n = 1024 (data, C = A*B,
-     keygen, commit A and B, prove, verify), checked without a pairing by
-     rebuilding keygen's secrets; four tampered proofs (a round commitment
-     swapped, a final changed, an opening witness changed, an entry of C
-     changed) verify false; the kernels' launch counts of the run and
-     their widths, and the launches and seconds of one more verify alone;
+  5. CPmmp at n = 1024 in the honest-verifier mode
+     (`examples.matrixsc.run(10, fs=False)`: data, keygen, the two
+     commitments, prove, verify), verify true, K1-K3 launched;
   6. the probes P1a (SOS product), P1b (tensor-core reduction) and P2
      (limb product, three variants) against their plain versions and K1
      at 2^20, bit for bit, with their times beside K1's and P1b's
      registers and shared memory from ptxas's report; the pairing on
      the card: bilinearity e(aG1, bG2) = e(G1, G2)^(ab) at width 64 and
      e(G1, G2) equal to the CPU's;
-  7. the Fiat-Shamir path at n = 1024 with phase 5's key and data: prove
-     and verify true (the transcript on K4), a tampered proof false, with
-     its launch counts and their widths;
+  7. the same in the Fiat-Shamir mode (`matrixsc.run(10)`), verify true,
+     K1-K4 launched;
   8. the Hadamard example at n = 2^14 (`examples.hadamard.run(14)`):
      CPhadL keygen, three commitments, prove, verify, then CPhad in the
      Fiat-Shamir mode, each timed, with the kernels' launch counts and
@@ -62,17 +58,9 @@ Phases, each printing its result and times on its own line:
      flipped-output tamper false; the commitments, CPhadL's pi, the t_i G
      and lin_pi equal host-int scalars times G1 (chi, the l_i(chi) and
      k rebuilt from the seeds);
- 11. Groth16 on the n = 128 matmul R1CS (`examples.legogrothmatrix.run(128)`:
-     2^21 constraints, 2129921 variables, the reference's top size):
-     keygen, prove, verify and the emulated witness commitment, timed,
-     with the kernels' launch counts per phase, their widths and the
-     peak device memory of each phase and of the run (below 60 GiB: the
-     MSMs run their windows in memory-bounded chunks); 32
-     sampled elements of each key query and A, B, C equal host-int
-     scalars times G1 or G2 (the trapdoor and r, s drawn again from the
-     seeds, the QAP values from host Lagrange values); the honest proof
-     and three tampers (a public output + 1, A and C swapped, B + G2) in
-     one `pairing_checks`, only the honest one true;
+ 11. Groth16 on the 128 x 128 matmul R1CS, 2^21 constraints
+     (`examples.legogrothmatrix.run(128)`: setup, prove, verify, the
+     emulated witness commitment), verify true, K1-K3, K5 and K6 launched;
  12. the sharded layer (`parallel/sharded`, driven by `parallel/dryrun`)
      at the main path's widths: `msm_sharded` over 2^20 distinct points
      k_i*G at c = 17 (and 256 points (i + 1)*G2), `field_sum_sharded` and
@@ -105,7 +93,13 @@ JSON line (with `ms_by_width` for K2 and K3), the
 `nvidia-smi` name and power limit line, and as the last line
 {"ok": true, "device": {...}}.
 
-Usage: python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13]   (7 needs 5)
+Phases 5, 7-11 and 13 each drive one or more paths, with the kernels'
+launches counted per path and by width. Phases 5, 7 and 11 check only the
+verdict and the launches: their paths are the benchmark's cells, held to
+their plain references with tampered proofs (`python3 portbench/run.py
+--workload cpmmp_1024.hv`, `.fs`, `groth16_mm128.session`, `--trace 1`).
+
+Usage: python3 chip_smoke.py [--phases 1,2,3,...,13]
 Needs one CUDA card; exits non-zero without one, or when any check fails.
 """
 from __future__ import annotations
@@ -117,17 +111,16 @@ import subprocess
 import sys
 import time
 
+# the host-int reference and the roofline constants are the benchmark's:
+# the cells and these checks share one copy (ROADMAP.md, section 4)
+from portbench.reference._bn254 import (G1_GEN as G, G2_GEN, R, aff2_add,
+                                        aff2_mul, aff_add, aff_mul, aff_neg,
+                                        mle_fold)
+from portbench.roofline import (HBM_BYTES_PER_S, IMUL_PER_MONT,
+                                INT32_MUL_PER_S, LIMB_BYTES)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks: HBM 3.35 TB/s; 32-bit integer multiply-adds at 64 lanes
-# per SM x 132 SMs x 1.98 GHz (half the FP32 lane count behind the
-# published 67 TFLOP/s float32 rate)
-HBM_BYTES_PER_S = 3.35e12
-INT32_MUL_PER_S = 64 * 132 * 1.98e9
-#: 32-bit multiply instructions per Montgomery product: 64 word products
-#: for a*b and 64 for m*p, each needing its low and high word, and 8 for
-#: m = t[0] * pinv, which needs only the low word
-IMUL_PER_MONT = 2 * (64 + 64) + 8
 #: the SOS product (P1a): a*b and m*p as in CIOS, and m = t_lo * ninv mod R
 #: over the whole 256-bit ninv, 36 word products of which 28 need their
 #: high word
@@ -139,7 +132,6 @@ IMUL_PER_TC = 2 * 64 + 1
 #: data sheet's dense int8 rate
 TC_OPS_PER_ELEM = 4 * 16 * 8 * 32 * 2 // 8
 INT8_TC_OPS_PER_S = 1979e12
-LIMB_BYTES = 32
 #: Montgomery products per MiMC permutation (K4): 110 rounds of three
 MIMC_PRODUCTS = 330
 #: K3's `times` checked and timed at 2^20 (4: scalar multiplication's
@@ -150,11 +142,15 @@ NARROW_WIDTHS = (1, 2, 32, 1 << 10)
 #: K5/K6's narrow widths: the G2 Horner steps of one to a few MSM rows,
 #: the generator table's chain, the key's scalar multiplications
 G2_NARROW_WIDTHS = (1, 2, 8, 32)
-#: the main path's kernels, whose launches phases 5 and 7 count
+#: the main path's kernels, which every path of phases 5, 7-11 and 13
+#: must launch
 MAIN_KERNELS = ("mont_mul", "g1_add", "g1_double")
-#: phase 11's ceiling on Groth16's peak device memory at n = 128 (of the
-#: card's 80 GB)
-GROTH16_PEAK_LIMIT = 60 << 30
+#: the phases, as `--phases` names them
+PHASES = tuple(range(1, 14))
+#: phases 5, 7 and 11: the path each drives, the example's `run` at its
+#: benchmark cell's size, and the kernels it launches beyond K1-K3
+EXAMPLE_PATHS = {5: ("cpmmp_hv_1024", ()), 7: ("cpmmp_fs_1024", ("mimc",)),
+                 11: ("groth16_128", ("g2_add", "g2_double"))}
 #: phase 13's paths, in the order it drives them
 BENCH_PATHS = ("bench_msm_c16", "cppoly_20var", "cpsc_16var",
                "bench_gadgets_rest")
@@ -170,95 +166,6 @@ def log(msg: str) -> None:
 def check(cond, what: str) -> None:
     if not cond:
         raise AssertionError(f"check failed: {what}")
-
-
-# ---------------------------------------------------------------------------
-# host-side affine reference (Python ints), independent of the port
-# ---------------------------------------------------------------------------
-
-Q = 21888242871839275222246405745257275088696311157297823662689037894645226208583
-R = 21888242871839275222246405745257275088548364400416034343698204186575808495617
-G = (1, 2)
-
-
-def aff_add(p, q):
-    if p is None:
-        return q
-    if q is None:
-        return p
-    (x1, y1), (x2, y2) = p, q
-    if x1 == x2 and (y1 + y2) % Q == 0:
-        return None
-    if p == q:
-        lam = 3 * x1 * x1 * pow(2 * y1, -1, Q) % Q
-    else:
-        lam = (y2 - y1) * pow(x2 - x1, -1, Q) % Q
-    x3 = (lam * lam - x1 - x2) % Q
-    return (x3, (lam * (x1 - x3) - y1) % Q)
-
-
-def aff_mul(p, k):
-    k %= R
-    acc = None
-    while k:
-        if k & 1:
-            acc = aff_add(acc, p)
-        p = aff_add(p, p)
-        k >>= 1
-    return acc
-
-
-def aff_neg(p):
-    return None if p is None else (p[0], (-p[1]) % Q)
-
-
-#: the G2 generator (EIP-197), affine over Fq2 = Fq[u]/(u^2 + 1)
-G2_GEN = ((10857046999023057135944570762232829481370756359578518086990519993285655852781,
-           11559732032986387107991004021392285783925812861821192530917403151452391805634),
-          (8495653923123431417604973247489272438418190587263600148770280649306958101930,
-           4082367875863433681332203403145435568316851327593401208105741076214120093531))
-
-
-def f2_mul(a, b):
-    return ((a[0] * b[0] - a[1] * b[1]) % Q, (a[0] * b[1] + a[1] * b[0]) % Q)
-
-
-def f2_sub(a, b):
-    return ((a[0] - b[0]) % Q, (a[1] - b[1]) % Q)
-
-
-def f2_inv(a):
-    d = pow(a[0] * a[0] + a[1] * a[1], -1, Q)
-    return (a[0] * d % Q, -a[1] * d % Q)
-
-
-def aff2_add(p, q):
-    """Affine addition on the twist y^2 = x^3 + b' over Fq2."""
-    if p is None:
-        return q
-    if q is None:
-        return p
-    (x1, y1), (x2, y2) = p, q
-    if x1 == x2 and (y1[0] + y2[0]) % Q == 0 and (y1[1] + y2[1]) % Q == 0:
-        return None
-    if p == q:
-        x1sq = f2_mul(x1, x1)
-        lam = f2_mul((3 * x1sq[0], 3 * x1sq[1]), f2_inv((2 * y1[0], 2 * y1[1])))
-    else:
-        lam = f2_mul(f2_sub(y2, y1), f2_inv(f2_sub(x2, x1)))
-    x3 = f2_sub(f2_sub(f2_mul(lam, lam), x1), x2)
-    return (x3, f2_sub(f2_mul(lam, f2_sub(x1, x3)), y1))
-
-
-def aff2_mul(p, k):
-    k %= R
-    acc = None
-    while k:
-        if k & 1:
-            acc = aff2_add(acc, p)
-        p = aff2_add(p, p)
-        k >>= 1
-    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -670,123 +577,6 @@ def phase_parity(torch, dev) -> None:
         f"true on both (card {t1 - t0:.1f}s, cpu {t2 - t1:.1f}s)")
 
 
-def mle_fold(vals, pt):
-    """Bind the top variables of an MLE table of ints to the ints of pt,
-    in order (variable i is bit d-1-i of the index, as in the port)."""
-    for x in pt:
-        h = len(vals) // 2
-        vals = [(a + x * (b - a)) % R for a, b in zip(vals[:h], vals[h:])]
-    return vals
-
-
-def phase_cpmmp(torch, np, dev, d: int, kernels) -> dict:
-    from legosnark_tpu_torch.convert import to_ints
-    from legosnark_tpu_torch.curve.group import Point, g1_to_ints
-    from legosnark_tpu_torch.examples import matrixsc
-    from legosnark_tpu_torch.fields import limb as fl
-    from legosnark_tpu_torch.utils import rand as lrand
-
-    check(1 << d >= matrixsc._DEVICE_DATA_MIN_N, "n samples A, B by limbs")
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = matrixsc.run(d, device=dev, fs=False)
-    _sync(torch, dev)
-    total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    widths = _widths(kernels)
-    check(res["ok"], "CPmmp n=1024 honest-verifier proof verifies")
-    log(f"# phase 5 CPmmp n={res['n']}: launches {json.dumps(launches)} "
-        f"times {json.dumps({k: round(v, 3) for k, v in res['times'].items()})} "
-        f"total {total_s:.1f}s")
-    log(f"# phase 5 launch widths: {json.dumps(widths)}")
-    for name in MAIN_KERNELS:
-        check(launches.get(name, 0) > 0, f"{name} launched on the main path")
-
-    # the reference works on host ints only: A and B from the example's
-    # draws (seed 17 + d, canonical values below r), keygen's secrets drawn
-    # as the keygen draws them, the MLEs by host folds
-    t0 = time.perf_counter()
-    n = res["n"]
-    rng = np.random.default_rng(17 + d)
-    A = list(fl.limbs_to_ints(lrand.rand_fr_limbs_fast(rng, n * n)))
-    B = list(fl.limbs_to_ints(lrand.rand_fr_limbs_fast(rng, n * n)))
-    BT = [B[r_ * n + c_] for c_ in range(n) for r_ in range(n)]
-    rng = np.random.default_rng(1 ^ 0x9057)
-    s_key = lrand.rand_fr_ints(rng, 2 * d)
-    alpha = lrand.rand_fr_int(rng)
-
-    def ints(v):
-        return [int(x) for x in to_ints(v).reshape(-1)]
-
-    r, s, rho = ints(res["r"]), ints(res["s"]), ints(res["chal"])
-    a_k = mle_fold(A, r)                    # A~(r, k) for every column k
-    b_k = mle_fold(BT, s)                   # B~(k, s) for every row k
-    t = sum(x * y for x, y in zip(a_k, b_k)) % R   # C~(r, s), C = A*B
-    want_finals = (mle_fold(a_k, rho)[0], mle_fold(b_k, rho)[0])
-    at_key = (mle_fold(A, s_key)[0], mle_fold(B, s_key)[0])
-    ref_s = time.perf_counter() - t0
-
-    def pts(p):
-        return g1_to_ints(p)
-
-    pf, sc = res["proof"], res["proof"].sc_proof
-    for i, (name, cm) in enumerate((("A", res["a_comm"]),
-                                    ("B", res["b_comm"]))):
-        c, ca = pts(cm.c)[0], pts(cm.ca)[0]
-        check(c == aff_mul(G, at_key[i]), f"C_{name} = {name}~(s) G")
-        check(ca == aff_mul(c, alpha), f"Ca_{name} = alpha C_{name}")
-
-    t_comm = pts(pf.t_comm)[0]
-    check(t_comm == aff_mul(G, t), "t_comm = C~(r||s) G with C = A*B")
-    # the sumcheck chain, through the commitments' linearity:
-    # Com(h_i(0)) + Com(h_i(1)) = Com(h_{i-1}(rho_{i-1})), Com(h_0(0)) +
-    # Com(h_0(1)) = t_comm, and the last round closes on finals[0]*finals[1]
-    k1 = sc.h_comms.x.shape[-1]
-    hc = pts(Point(*(x.movedim(0, -2).reshape(8, -1) for x in sc.h_comms)))
-    claim = t_comm
-    for i in range(d):
-        c = hc[i * k1 : (i + 1) * k1]
-        at01 = c[0]
-        for cj in c:
-            at01 = aff_add(at01, cj)
-        check(at01 == claim, f"sumcheck round {i}: h(0) + h(1) = claim")
-        claim = None
-        for j, cj in enumerate(c):
-            claim = aff_add(claim, aff_mul(cj, pow(rho[i], j, R)))
-    finals = ints(sc.finals)
-    check(finals == list(want_finals), "sumcheck finals = host MLE values")
-    check(claim == aff_mul(G, finals[0] * finals[1]),
-          "last sumcheck round closes on finals[0] * finals[1]")
-
-    open_pts = (r + rho, rho + s)
-    ans_c = pts(sc.ans_comms)
-    for i, cm in enumerate((res["a_comm"], res["b_comm"])):
-        ans = want_finals[i]
-        check(ans_c[i] == aff_mul(G, ans), f"answer commitment {i}")
-        w = pts(sc.poly_pfs[i].witness)
-        wa = pts(sc.poly_pfs[i].witnessa)
-        rhs = None
-        for j in range(2 * d):
-            rhs = aff_add(rhs, aff_mul(w[j], s_key[j] - open_pts[i][j]))
-            check(wa[j] == aff_mul(w[j], alpha), f"Wa_{j} = alpha W_{j}")
-        lhs = aff_add(pts(cm.c)[0], aff_neg(aff_mul(G, ans)))
-        check(lhs == rhs, f"opening {i}: C - ans G = sum (s_j - pt_j) W_j")
-    log(f"# phase 5: commitments, t_comm, the sumcheck chain, finals and "
-        f"openings checked against host-int MLEs and keygen's rebuilt "
-        f"secrets (reference {ref_s:.1f}s)")
-
-    verify_s, verify_launches = _verify_alone(torch, dev, kernels, res)
-    log(f"# phase 5 verify alone: {verify_s:.3f}s, launches "
-        f"{json.dumps(verify_launches)}, widths "
-        f"{json.dumps(_widths(kernels))}")
-    _tampers(torch, dev, res)
-    log(f"# phase 5 ok: CPmmp n={n} honest-verifier verify true, four "
-        f"tampered proofs false")
-    return {"launches": launches, "times": res["times"], "total_s": total_s,
-            "verify_s": verify_s, "verify_launches": verify_launches,
-            "res": res}
-
-
 def _widths(kernels) -> dict:
     """Launches of K1-K3 since the last reset, by exact width: key "w",
     or "wxt" for a K3 launch of `times` t > 1."""
@@ -795,63 +585,34 @@ def _widths(kernels) -> dict:
             for k in MAIN_KERNELS}
 
 
-def _verify_hv(res, proof=None, C=None):
-    from legosnark_tpu_torch.gadgets import matrix as cpmat
-    return bool(cpmat.verify_output_in_clear(
-        res["key"], res["a_comm"], res["b_comm"],
-        res["C"] if C is None else C, res["proof"] if proof is None else proof,
-        hv_rand=res["hv"]))
-
-
-def _verify_alone(torch, dev, kernels, res):
-    """Seconds and kernel launches of one honest-verifier verify."""
+def drive(torch, dev, kernels, k: int, path: str, need, fn, *args):
+    """Phase k's path `path`: fn(*args) with the launch counts set to 0
+    before it and read after, each kernel in `need` launched at least
+    once. Returns fn's result and the path's launches."""
     _sync(torch, dev)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    ok = _verify_hv(res)
-    verify_s = time.perf_counter() - t0
-    check(ok, "verify alone is true")
-    return verify_s, dict(kernels.launches)
+    out = fn(*args)
+    _sync(torch, dev)
+    launches = dict(kernels.launches)
+    log(f"# phase {k} {path}: {time.perf_counter() - t0:.1f}s, launches "
+        f"{json.dumps(launches)}, widths {json.dumps(_widths(kernels))}")
+    for name in need:
+        check(launches.get(name, 0) > 0, f"{name} launched on the {path} "
+              f"path")
+    return out, launches
 
 
-def _tampers(torch, dev, res) -> None:
-    """Four tampered copies of the n = 1024 proof, each verified false."""
-    from legosnark_tpu_torch.curve import bn254
-    from legosnark_tpu_torch.curve.group import Point
-    from legosnark_tpu_torch.fields import limb as fl
-
-    pf = res["proof"]
-    sc = pf.sc_proof
-
-    def swap01(x):
-        y = x.clone()
-        y[0, ..., 0], y[0, ..., 1] = x[0, ..., 1], x[0, ..., 0]
-        return y
-
-    one = fl.one(bn254.FR, (), dev)
-    finals = sc.finals.clone()
-    finals[..., :1] = fl.add(bn254.FR, finals[..., :1], one)
-    w = sc.poly_pfs[0]
-    w_bad = w._replace(witness=Point(*(t.roll(1, -1) for t in w.witness)))
-    C = res["C"].clone()
-    C[0, :, :1] = fl.add(bn254.FR, C[0, :, :1], one)
-    cases = {
-        "round commitment swapped":
-            (pf._replace(sc_proof=sc._replace(
-                h_comms=Point(*(swap01(t) for t in sc.h_comms)))), None),
-        "final changed":
-            (pf._replace(sc_proof=sc._replace(finals=finals)), None),
-        "opening witness changed":
-            (pf._replace(sc_proof=sc._replace(
-                poly_pfs=(w_bad,) + tuple(sc.poly_pfs[1:]))), None),
-        "entry of C changed": (pf, C),
-    }
-    for what, (proof, Cm) in cases.items():
-        t0 = time.perf_counter()
-        ok = _verify_hv(res, proof, Cm)
-        log(f"# phase 5 tamper '{what}': verify {ok} "
-            f"({time.perf_counter() - t0:.2f}s)")
-        check(not ok, f"tampered proof ({what}) verifies false")
+def phase_example(torch, dev, kernels, k: int, fn, *args) -> dict:
+    """Phase k: an example's `run` as the path EXAMPLE_PATHS names, its
+    verdict true."""
+    path, extra = EXAMPLE_PATHS[k]
+    res, launches = drive(torch, dev, kernels, k, path, MAIN_KERNELS + extra,
+                          fn, *args)
+    check(res["ok"], f"the {path} proof verifies")
+    log(f"# phase {k} ok: {path} verifies, times "
+        f"{json.dumps({p: round(v, 3) for p, v in res['times'].items()})}")
+    return {"launches": launches, "times": res["times"]}
 
 
 def phase_probes(torch, np, dev) -> dict:
@@ -944,70 +705,20 @@ def phase_pairing(torch, np, dev) -> None:
     check(not bool(pr.F12.is_one(e1).all()), "e(G1, G2) != 1")
 
 
-def phase_fs(torch, dev, kernels, res) -> dict:
-    """The Fiat-Shamir path at n = 1024 with phase 5's key and data."""
-    from legosnark_tpu_torch.curve.group import Point
-    from legosnark_tpu_torch.gadgets import matrix as cpmat
-
-    key, A, B, C = res["key"], res["A"], res["B"], res["C"]
-    a_cm, b_cm = res["a_comm"], res["b_comm"]
-    _sync(torch, dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    pf = cpmat.prove_output_in_clear_fs(key, A, B, C, a_cm, b_cm,
-                                        res["nonces"])
-    _sync(torch, dev)
-    prove_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ok = bool(cpmat.verify_output_in_clear_fs(key, a_cm, b_cm, C, pf))
-    verify_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    log(f"# phase 7 FS CPmmp n={key.n}: prove {prove_s:.3f}s verify "
-        f"{verify_s:.3f}s verdict {ok}; launches {json.dumps(launches)}")
-    log(f"# phase 7 launch widths: {json.dumps(_widths(kernels))}")
-    check(ok, "Fiat-Shamir proof at n=1024 verifies")
-    for name in MAIN_KERNELS:
-        check(launches.get(name, 0) > 0, f"{name} launched on the FS path")
-    check(launches.get("mimc", 0) > 0, "K4 launched on the FS path")
-    sc = pf.sc_proof
-    bad = pf._replace(sc_proof=sc._replace(h_comms=Point(
-        *(t.roll(1, 0) for t in sc.h_comms))))
-    t0 = time.perf_counter()
-    ok_bad = bool(cpmat.verify_output_in_clear_fs(key, a_cm, b_cm, C, bad))
-    log(f"# phase 7 tamper 'round commitments rotated': verify {ok_bad} "
-        f"({time.perf_counter() - t0:.2f}s)")
-    check(not ok_bad, "tampered Fiat-Shamir proof verifies false")
-    log("# phase 7 ok: Fiat-Shamir prove + verify at n=1024 true, tamper "
-        "false")
-    return {"launches": launches, "prove_s": prove_s, "verify_s": verify_s}
-
-
 def phase_hadamard(torch, np, dev, d: int, kernels) -> dict:
     """The Hadamard example at n = 2^d, its host-int checks and tampers."""
     from legosnark_tpu_torch.examples import hadamard as had_example
 
-    _sync(torch, dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = had_example.run(d, device=dev)
-    total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    log(f"# phase 8 Hadamard n={1 << d}: launches {json.dumps(launches)} "
-        f"times {json.dumps({k: round(v, 3) for k, v in res['times'].items()})}"
-        f" total {total_s:.1f}s")
-    log(f"# phase 8 launch widths: {json.dumps(_widths(kernels))}")
+    res, launches = drive(torch, dev, kernels, 8, "hadamard_2e14",
+                          MAIN_KERNELS + ("mimc",), had_example.run, d, dev)
     check(res["lipmaa"]["ok"], "CPhadL proof at n=2^14 verifies")
     check(res["hadsc"]["ok"], "CPhad Fiat-Shamir proof at n=2^14 verifies")
-    for name in MAIN_KERNELS:
-        check(launches.get(name, 0) > 0, f"{name} launched on the "
-              f"Hadamard path")
-    check(launches.get("mimc", 0) > 0, "K4 launched on the Hadamard path")
     _cphad_host_checks(np, d, res["hadsc"])
     _cphadl_host_checks(np, d, res["lipmaa"])
     _hadamard_tampers(torch, dev, res)
     log("# phase 8 ok: CPhadL and CPhad (Fiat-Shamir) at n=2^14 verify, "
         "agree with host ints and rebuilt trapdoors, and reject tampers")
-    return {"launches": launches, "times": res["times"], "total_s": total_s}
+    return {"launches": launches, "times": res["times"]}
 
 
 def _ints(v):
@@ -1174,24 +885,14 @@ def phase_cplink(torch, np, dev, log_n: int, kernels) -> dict:
     """CPlink at N = 2^log_n, its host-int checks and tampers."""
     from legosnark_tpu_torch.examples import cplink
 
-    _sync(torch, dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = cplink.run(log_n, device=dev)
-    total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    log(f"# phase 9 CPlink N=2^{log_n}: launches {json.dumps(launches)} "
-        f"times {json.dumps({k: round(v, 3) for k, v in res['times'].items()})}"
-        f" total {total_s:.1f}s")
-    log(f"# phase 9 launch widths: {json.dumps(_widths(kernels))}")
+    res, launches = drive(torch, dev, kernels, 9, "cplink_2e10", MAIN_KERNELS,
+                          cplink.run, log_n, dev)
     check(res["ok"], "CPlink proof and both knowledge legs verify")
-    for name in MAIN_KERNELS:
-        check(launches.get(name, 0) > 0, f"{name} launched on the CPlink path")
     _cplink_host_checks(np, res)
     _cplink_tampers(dev, res)
     log(f"# phase 9 ok: CPlink at N=2^{log_n} verifies, agrees with host "
         f"ints from the rebuilt seeds, and rejects four tampers")
-    return {"launches": launches, "times": res["times"], "total_s": total_s}
+    return {"launches": launches, "times": res["times"]}
 
 
 def _cplink_host_checks(np, res) -> None:
@@ -1275,25 +976,14 @@ def phase_matrixac(torch, np, dev, n: int, kernels) -> dict:
     """CPAC on an n x n matrix product, with host-int checks."""
     from legosnark_tpu_torch.examples import matrixac
 
-    _sync(torch, dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = matrixac.run(n, device=dev)
-    total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    log(f"# phase 10 CPAC matrixac n={n} ({res['rel'].n} gates): launches "
-        f"{json.dumps(launches)} times "
-        f"{json.dumps({k: round(v, 3) for k, v in res['times'].items()})} "
-        f"total {total_s:.1f}s (the tamper's prove and verify included)")
-    log(f"# phase 10 launch widths: {json.dumps(_widths(kernels))}")
+    res, launches = drive(torch, dev, kernels, 10, "matrixac_8", MAIN_KERNELS,
+                          matrixac.run, n, dev)
     check(res["ok"], "CPAC proof verifies")
     check(res["tamper_rejected"], "CPAC proof with a flipped output fails")
-    for name in MAIN_KERNELS:
-        check(launches.get(name, 0) > 0, f"{name} launched on the CPAC path")
     _matrixac_host_checks(np, n, res)
     log(f"# phase 10 ok: CPAC at n={n} verifies, rejects the flipped output "
-        f"and agrees with host ints")
-    return {"launches": launches, "times": res["times"], "total_s": total_s}
+        f"and agrees with host ints ({res['rel'].n} gates)")
+    return {"launches": launches, "times": res["times"]}
 
 
 def _matrixac_host_checks(np, n: int, res) -> None:
@@ -1344,160 +1034,6 @@ def _matrixac_host_checks(np, n: int, res) -> None:
           "lin_pi = (sum_i k_i <M_i, w>) G1")
     log(f"# phase 10 host checks: commitments, had_pi, {len(t)} t_i G and "
         f"lin_pi equal host ints ({time.perf_counter() - t0:.1f}s)")
-
-
-def phase_groth16(torch, np, dev, n: int, kernels) -> dict:
-    """Groth16 on the n x n matmul R1CS, its host-int checks and tampers."""
-    from legosnark_tpu_torch.examples import legogrothmatrix
-
-    _sync(torch, dev)
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res = legogrothmatrix.run(n, device=dev)
-    total_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    peaks = res["peak_bytes"]
-    r1cs = res["r1cs"]
-    log(f"# phase 11 Groth16 n={n} ({len(r1cs.A)} constraints, "
-        f"{r1cs.num_vars} vars): launches {json.dumps(launches)} times "
-        f"{json.dumps({k: round(v, 3) for k, v in res['times'].items()})} "
-        f"total {total_s:.1f}s")
-    log(f"# phase 11 launches by phase: {json.dumps(res['launches'])}")
-    gib = {k: round(v / 2**30, 2) for k, v in peaks.items()}
-    log(f"# phase 11 peak device memory by phase, bytes: {json.dumps(peaks)} "
-        f"(GiB: {json.dumps(gib)})")
-    log(f"# phase 11 launch widths: {json.dumps(_widths(kernels))}")
-    check(res["ok"], "the Groth16 proof verifies")
-    check(0 < peaks.get("run", 0) < GROTH16_PEAK_LIMIT,
-          f"the run's peak device memory below {GROTH16_PEAK_LIMIT >> 30} GiB")
-    for name in MAIN_KERNELS + ("g2_add", "g2_double"):
-        check(launches.get(name, 0) > 0,
-              f"{name} launched on the Groth16 path")
-    _groth16_host_checks(np, res)
-    _groth16_tampers(dev, res)
-    log(f"# phase 11 ok: Groth16 at n={n} verifies, its key samples and "
-        f"proof equal host ints, and three tampers fail")
-    return {"launches": launches, "times": res["times"], "total_s": total_s,
-            "peak_bytes": peaks}
-
-
-def _groth16_host_checks(np, res, samples: int = 32) -> None:
-    """32 sampled elements of each key query, the key's single elements
-    and A, B, C as host-int scalars times G1 or G2: the data drawn again
-    from rng 67 + n, the trapdoor from seed n ^ 0x6706, r and s from
-    n ^ 0x6707, the Lagrange values of the domain at tau computed here."""
-    from legosnark_tpu_torch.curve.bn254 import fr_two_adic_root
-    from legosnark_tpu_torch.curve.group import (g1_to_ints, g2_to_ints,
-                                                 point_map)
-
-    def draws(rng, k):
-        return [int.from_bytes(rng.bytes(40), "little") % R for _ in range(k)]
-
-    t0 = time.perf_counter()
-    n, r1cs, z, pk, vk = res["n"], res["r1cs"], res["z"], res["pk"], res["vk"]
-    rng = np.random.default_rng(67 + n)
-    A, B = draws(rng, n * n), draws(rng, n * n)
-    check(res["public"] == [sum(A[i * n + k] * B[k * n + j] for k in range(n))
-                            % R for i in range(n) for j in range(n)],
-          "the public outputs are C = A B of the redrawn data")
-    tau, alpha, beta, gamma, delta = draws(
-        np.random.default_rng(n ^ 0x6706), 5)
-    r, s = draws(np.random.default_rng(n ^ 0x6707), 2)
-    m, nv, npub = len(r1cs.A), r1cs.num_vars, r1cs.num_public + 1
-    d = 1 << (m - 1).bit_length()
-    root = fr_two_adic_root(d.bit_length() - 1)
-    z_tau = (pow(tau, d, R) - 1) % R
-    ws = [1] * d
-    for j in range(1, d):
-        ws[j] = ws[j - 1] * root % R
-    # L_j(tau) = Z(tau) w^j / (d (tau - w^j)), the d inversions batched by
-    # prefix products (none of the factors is zero: tau is off the domain)
-    dens = [d * (tau - wj) % R for wj in ws]
-    pref = [1] * (d + 1)
-    for j, x in enumerate(dens):
-        pref[j + 1] = pref[j] * x % R
-    inv = pow(pref[d], -1, R)
-    lag = [0] * d
-    for j in range(d - 1, -1, -1):
-        lag[j] = z_tau * ws[j] % R * (inv * pref[j] % R) % R
-        inv = inv * dens[j] % R
-    u, v, w = [0] * nv, [0] * nv, [0] * nv
-    for rows, acc in ((r1cs.A, u), (r1cs.B, v), (r1cs.C, w)):
-        for row, lj in zip(rows, lag):
-            for var, coef in row:
-                acc[var] = (acc[var] + coef * lj) % R
-    comb = [(beta * a + alpha * b + c) % R for a, b, c in zip(u, v, w)]
-    dinv, ginv = pow(delta, -1, R), pow(gamma, -1, R)
-    queries = {   # name -> (points, scalar of index i, on G2?)
-        "a_query": (pk.a_query, lambda i: u[i], False),
-        "b1_query": (pk.b1_query, lambda i: v[i], False),
-        "b2_query": (pk.b2_query, lambda i: v[i], True),
-        "h_query": (pk.h_query, lambda i: pow(tau, i, R) * z_tau * dinv,
-                    False),
-        "l_query": (pk.l_query, lambda i: comb[npub + i] * dinv, False),
-        "ic": (vk.ic, lambda i: comb[i] * ginv, False)}
-    pick = np.random.default_rng(11)
-    for name, (pts, scalar, on_g2) in queries.items():
-        width = pts.x.shape[-1]
-        idx = sorted(int(i) for i in pick.choice(width, min(samples, width),
-                                                 replace=False))
-        got = (g2_to_ints if on_g2 else g1_to_ints)(
-            point_map(lambda t: t[..., idx], pts))
-        want = [aff2_mul(G2_GEN, scalar(i)) if on_g2 else aff_mul(G, scalar(i))
-                for i in idx]
-        check(got == want, f"{name} at {len(idx)} sampled indices")
-    check(g1_to_ints(pk.alpha_g1) + g1_to_ints(pk.beta_g1)
-          + g1_to_ints(pk.delta_g1) == [aff_mul(G, x)
-                                        for x in (alpha, beta, delta)],
-          "alpha, beta, delta in G1")
-    check(g2_to_ints(pk.beta_g2) + g2_to_ints(vk.gamma_g2)
-          + g2_to_ints(pk.delta_g2) == [aff2_mul(G2_GEN, x)
-                                        for x in (beta, gamma, delta)],
-          "beta, gamma, delta in G2")
-    a = sum(x * y for x, y in zip(z, u)) % R
-    b = sum(x * y for x, y in zip(z, v)) % R
-    c = sum(x * y for x, y in zip(z, w)) % R
-    priv = sum(x * y for x, y in zip(z[npub:], comb[npub:]))
-    a_s = (alpha + a + r * delta) % R
-    b_s = (beta + b + s * delta) % R
-    c_s = ((priv + a * b - c) * dinv + s * a_s + r * b_s - r * s * delta) % R
-    pf = res["pf"]
-    check(g1_to_ints(pf.a) == [aff_mul(G, a_s)],
-          "A = (alpha + a(tau) + r delta) G1")
-    check(g2_to_ints(pf.b) == [aff2_mul(G2_GEN, b_s)],
-          "B = (beta + b(tau) + s delta) G2")
-    check(g1_to_ints(pf.c) == [aff_mul(G, c_s)],
-          "C = ((priv + a b - c) / delta + s A + r B1 - rs delta) G1")
-    log(f"# phase 11 host checks: up to {samples} samples of each of the six "
-        f"key queries, the six single key elements and A, B, C equal host ints "
-        f"({time.perf_counter() - t0:.1f}s)")
-
-
-def _groth16_tampers(dev, res) -> None:
-    """The honest proof and three tampers in one `pairing_checks`."""
-    from legosnark_tpu_torch.curve import pairing as pr
-    from legosnark_tpu_torch.curve.group import G2, g2_generator
-    from legosnark_tpu_torch.gadgets import groth16
-
-    t0 = time.perf_counter()
-    vk, pf, public = res["vk"], res["pf"], res["public"]
-    bad = list(public)
-    bad[0] = (bad[0] + 1) % R
-    cases = {
-        "honest": groth16.verify_pairs(vk, public, pf),
-        "public output + 1": groth16.verify_pairs(vk, bad, pf),
-        "A and C swapped": groth16.verify_pairs(
-            vk, public, groth16.Proof(pf.c, pf.b, pf.a)),
-        "B + G2": groth16.verify_pairs(vk, public, groth16.Proof(
-            pf.a, G2.add(pf.b, g2_generator((), dev)), pf.c)),
-    }
-    verdicts = pr.pairing_checks([g for gs in cases.values()
-                                  for g in gs]).tolist()
-    for what, ok in zip(cases, verdicts):
-        log(f"# phase 11 verify '{what}': {ok}")
-        honest = what == "honest"
-        check(ok is honest, f"verify '{what}' is {honest}")
-    log(f"# phase 11 tampers: {time.perf_counter() - t0:.2f}s")
 
 
 def phase_sharded(torch, np, dev, sizes, worlds: dict) -> dict:
@@ -1579,22 +1115,12 @@ def phase_bench(torch, np, dev, kernels) -> dict:
 
     launches, summary = {}, {}
 
-    def drive(path, fn, *args):
-        _sync(torch, dev)
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        _sync(torch, dev)
-        launches[path] = dict(kernels.launches)
-        log(f"# phase 13 {path}: {time.perf_counter() - t0:.1f}s, launches "
-            f"{json.dumps(launches[path])}, widths "
-            f"{json.dumps(_widths(kernels))}")
-        for name in MAIN_KERNELS:
-            check(launches[path].get(name, 0) > 0,
-                  f"{name} launched on the {path} path")
+    def on_path(path, fn, *args):
+        out, launches[path] = drive(torch, dev, kernels, 13, path,
+                                    MAIN_KERNELS, fn, *args)
         return out
 
-    msms = drive("bench_msm_c16", lambda: {
+    msms = on_path("bench_msm_c16", lambda: {
         log_n: bench.run_msm(log_n, 16, 3, dev) for log_n in (18, 20)})
     for log_n, res in msms.items():
         e = sum(k * s for k, s in zip(res["k"], res["s"])) % R
@@ -1610,7 +1136,7 @@ def phase_bench(torch, np, dev, kernels) -> dict:
     os.makedirs(build, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as cache:
         rows = bg.Rows()
-        res = drive("cppoly_20var", bg.bench_cppoly, 20, dev, cache, rows)
+        res = on_path("cppoly_20var", bg.bench_cppoly, 20, dev, cache, rows)
         summary["cppoly_20var"] = rows.rows
         check(rows.rows[0]["srs_cache_hit"] is False,
               "the first keygen misses the fresh SRS cache")
@@ -1623,7 +1149,7 @@ def phase_bench(torch, np, dev, kernels) -> dict:
             "tampers fail")
 
         rows = bg.Rows()
-        res = drive("cpsc_16var", bg.bench_cpsc, 16, dev, cache, rows)
+        res = on_path("cpsc_16var", bg.bench_cpsc, 16, dev, cache, rows)
         summary["cpsc_16var"] = rows.rows
         check(res["ok"], "CPsc over 16 variables verifies")
         _cpsc_host_checks(np, 16, res)
@@ -1632,7 +1158,7 @@ def phase_bench(torch, np, dev, kernels) -> dict:
             "three tampers")
 
         out = os.path.join(cache, "rows.json")
-        drive("bench_gadgets_rest", bg.main, [
+        on_path("bench_gadgets_rest", bg.main, [
             *BENCH_REST, "--out", out, "--srs-cache", cache])
         with open(out) as fh:
             rows = json.load(fh)
@@ -1819,11 +1345,12 @@ KERNELS = {
 
 
 def main(argv) -> int:
-    phases = set(range(1, 14))
+    phases = set(PHASES)
     if "--phases" in argv:
         phases = {int(x) for x in argv[argv.index("--phases") + 1].split(",")}
-    if 7 in phases and 5 not in phases:
-        print("chip_smoke: phase 7 reuses phase 5's key", file=sys.stderr)
+    if phases - set(PHASES):
+        print(f"chip_smoke: no phase {sorted(phases - set(PHASES))}; the "
+              f"phases are {PHASES}", file=sys.stderr)
         return 2
     try:
         import numpy as np
@@ -1837,6 +1364,7 @@ def main(argv) -> int:
     sys.path.insert(0, HERE)
     try:
         from legosnark_tpu_torch import kernels
+        from legosnark_tpu_torch.examples import legogrothmatrix, matrixsc
         from legosnark_tpu_torch.parallel import dryrun
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
@@ -1861,22 +1389,22 @@ def main(argv) -> int:
     stats = timed(2, phase_kernels, torch, np, dev, 1 << 20) or {}
     timed(3, phase_msm, torch, np, dev, 1 << 20, 17)
     timed(4, phase_parity, torch, dev)
-    hv = timed(5, phase_cpmmp, torch, np, dev, 10, kernels)
+    hv = timed(5, phase_example, torch, dev, kernels, 5, matrixsc.run, 10,
+               dev, False)
     stats.update(timed(6, phase_probes, torch, np, dev) or {})
-    fs = timed(7, lambda: phase_fs(torch, dev, kernels, hv["res"]))
+    fs = timed(7, phase_example, torch, dev, kernels, 7, matrixsc.run, 10,
+               dev)
     had = timed(8, phase_hadamard, torch, np, dev, 14, kernels)
     link = timed(9, phase_cplink, torch, np, dev, 10, kernels)
     mac = timed(10, phase_matrixac, torch, np, dev, 8, kernels)
-    g16 = timed(11, phase_groth16, torch, np, dev, 128, kernels)
+    g16 = timed(11, phase_example, torch, dev, kernels, 11,
+                legogrothmatrix.run, 128, dev)
     worlds = sharded_worlds(torch)
     shd = timed(12, phase_sharded, torch, np, dev, dryrun.FULL, worlds)
     bnc = timed(13, phase_bench, torch, np, dev, kernels)
-    paths = {"cpmmp_hv_1024": hv["launches"] if hv else {},
-             "cpmmp_fs_1024": fs["launches"] if fs else {},
-             "hadamard_2e14": had["launches"] if had else {},
-             "cplink_2e10": link["launches"] if link else {},
-             "matrixac_8": mac["launches"] if mac else {},
-             "groth16_128": g16["launches"] if g16 else {}}
+    done = {"cpmmp_hv_1024": hv, "cpmmp_fs_1024": fs, "hadamard_2e14": had,
+            "cplink_2e10": link, "matrixac_8": mac, "groth16_128": g16}
+    paths = {p: res["launches"] if res else {} for p, res in done.items()}
     paths.update({p: shd["launches"][p] if shd else {} for p in worlds})
     paths.update({p: bnc["launches"].get(p, {}) if bnc else {}
                   for p in BENCH_PATHS})
@@ -1897,15 +1425,7 @@ def main(argv) -> int:
                          if k.startswith(("times", "host_ms_by", "ms_by"))})
     summary = {"phase_s": round(time.perf_counter() - t_all, 1),
                "seconds_by_phase": phase_s}
-    if hv:
-        summary.update({"hv_1024": {k: round(v, 3)
-                                    for k, v in hv["times"].items()},
-                        "hv_verify_alone_s": round(hv["verify_s"], 3)})
-    if fs:
-        summary.update({"fs_prove_s": round(fs["prove_s"], 3),
-                        "fs_verify_s": round(fs["verify_s"], 3)})
-    for name, res in (("hadamard_2e14", had), ("cplink_2e10", link),
-                      ("matrixac_8", mac), ("groth16_128", g16)):
+    for name, res in done.items():
         if res:
             summary[name] = {k: round(v, 3) for k, v in res["times"].items()}
     if shd:

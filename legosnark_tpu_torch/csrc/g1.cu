@@ -40,10 +40,9 @@
 //   Horner step instead of c of each.
 #include "field_cc.cuh"
 
-// Block size, from a sweep of 128 and 256 threads (scripts/sweep_g1_threads.py).
-#ifndef LSK_G1_THREADS
+// Block size: of 128 and 256 threads, 256 read 1-3% slower at 2^20 and 30-50%
+// slower at width 2^10 (PERF.md, the kernel table's notes).
 #define LSK_G1_THREADS 128
-#endif
 // At most 128 registers for K2 and 96 for K3 (65536 per SM).
 #define K2_MIN_BLOCKS (65536 / (LSK_G1_THREADS * 128))
 #define K3_MIN_BLOCKS (65536 / (LSK_G1_THREADS * 96))

@@ -9,23 +9,18 @@ that committing the witness wires would add in a commit-and-prove
 composition (`commit_emul`). Data: rng 67 + n draws A, then B, then the
 emulated commitment's base scalars; setup and prove use seed n.
 
-Prints one `##` line per phase, on the card one more per phase with its
-peak device memory and one with the run's, then the proof size and
-VERIFY OK or VERIFY FAIL (exit code 1).
+Prints one `##` line per phase, then the proof size and VERIFY OK or
+VERIFY FAIL (exit code 1).
 
 Usage: python -m legosnark_tpu_torch.examples.legogrothmatrix [MIN_N]
        [MAX_N] [--cpu]     (n doubles from MIN_N up to MAX_N)
 """
 from __future__ import annotations
 
-import collections
-import contextlib
 import sys
 
 import numpy as np
-import torch
 
-from .. import kernels
 from ..config import resolve_device
 from ..curve import bn254
 from ..curve import msm as msm_mod
@@ -41,35 +36,10 @@ PHASES = ("keygen", "prove", "verify", "commit_emul")
 
 def run(n: int, device=None) -> dict:
     """Groth16 on the n x n matmul R1CS -> the R1CS, witness z, keys,
-    proof, public inputs, `ok`, `proof_size`, the phase `times` in
-    seconds, the kernel `launches` of each phase and, on the card, the
-    `peak_bytes` of device memory allocated in each phase and in the
-    whole run ("run"; the card's peak counter is reset at the start)."""
+    proof, public inputs, `ok`, `proof_size` and the phase `times` in
+    seconds."""
     dev = resolve_device(device)
-    on_card = dev.type == "cuda"
     timer = bm.Benchmarkable(f"groth16_n{n}")
-    launches, peaks = {}, {}
-    if on_card:
-        torch.cuda.reset_peak_memory_stats(dev)
-
-    def mark(name=None):
-        """On the card: the peak since the last mark, folded into the
-        run's (and recorded as `name`'s); then a new span starts."""
-        if on_card:
-            b = torch.cuda.max_memory_allocated(dev)
-            peaks["run"] = max(peaks.get("run", 0), b)
-            if name:
-                peaks[name] = b
-            torch.cuda.reset_peak_memory_stats(dev)
-
-    @contextlib.contextmanager
-    def phase(name):
-        before = collections.Counter(kernels.launches)
-        mark()
-        with timer.phase(name) as out:
-            yield out
-        launches[name] = dict(collections.Counter(kernels.launches) - before)
-        mark(name)
 
     rng = np.random.default_rng(67 + n)
     r1cs, assign = groth16.matmul_r1cs(n)
@@ -80,14 +50,14 @@ def run(n: int, device=None) -> dict:
                          for rows in (r1cs.A, r1cs.B, r1cs.C))):
         assert a * b % R == c, "R1CS unsatisfied"
 
-    with phase("keygen") as out:
+    with timer.phase("keygen") as out:
         pk, vk = groth16.setup(r1cs, seed=n, device=dev)
         out.append(pk)
-    with phase("prove") as out:
+    with timer.phase("prove") as out:
         pf = groth16.prove(pk, r1cs, z, seed=n)
         out.append(pf)
     public = z[1 : r1cs.num_public + 1]
-    with phase("verify"):
+    with timer.phase("verify"):
         ok = bool(groth16.verify(vk, public, pf))
 
     # the MSM that commits the witness wires in a commit-and-prove
@@ -97,7 +67,7 @@ def run(n: int, device=None) -> dict:
     bases = msm_mod.batch_scalar_mul(
         G1, msm_mod.generator_table(G1, dev), fl.tensor(fl.ints_to_limbs(
             lrand.rand_fr_ints(rng, wit.shape[-1])), dev), c=8)
-    with phase("commit_emul") as out:
+    with timer.phase("commit_emul") as out:
         out.append(msm_mod.msm(G1, bases, wit))
 
     sizes = groth16.proof_size_group_elements()
@@ -105,17 +75,11 @@ def run(n: int, device=None) -> dict:
           f"{r1cs.num_vars} vars) on {dev} ===")
     for name in PHASES:
         bm.print_bm(f"groth16_{name}_n{n}", timer.timing_micros(name))
-    if on_card:
-        mark()
-        for name in PHASES + ("run",):
-            print(f"## groth16_{name}_peak_n{n}: {peaks[name]} bytes "
-                  f"({peaks[name] / 2**30:.2f} GiB)")
     print(f"## proof size: {sizes['g1']} G1 + {sizes['g2']} G2")
     print(f"VERIFY {'OK' if ok else 'FAIL'}", flush=True)
     return {"n": n, "r1cs": r1cs, "z": z, "pk": pk, "vk": vk, "pf": pf,
             "public": public, "ok": ok, "proof_size": sizes,
-            "times": timer.seconds(), "launches": launches,
-            "peak_bytes": peaks}
+            "times": timer.seconds()}
 
 
 def main(argv):

@@ -1,6 +1,6 @@
 """Helpers for checking and timing kernels against their plain versions:
 the word comparison, the timers, the edge values and the random operands
-shared by `chip_smoke.py`, the probes and `scripts/sweep_g1_threads.py`."""
+shared by `chip_smoke.py`, the probes and `scripts/sweep_mont_tc.py`."""
 from __future__ import annotations
 
 import time
