@@ -3,7 +3,7 @@
 
 Phases, each printing its result and times on its own line:
   1. start-up: versions, the card and its power limit, the kernel build
-     (fails if K2, K3, K4, K5, K6 or P1b spill);
+     (fails if K2-K6 or P1b spill);
   2. kernels K1 (Montgomery product), K2 (G1 add) and K3 (G1 double,
      also with times = 4 and 17 doublings in one launch) against their
      plain PyTorch versions at 2^20 elements, bit for bit, with edge
@@ -31,8 +31,12 @@ Phases, each printing its result and times on its own line:
      (limb product, three variants) against their plain versions and K1
      at 2^20, bit for bit, with their times beside K1's and P1b's
      registers and shared memory from ptxas's report; the pairing on
-     the card: bilinearity e(aG1, bG2) = e(G1, G2)^(ab) at width 64 and
-     e(G1, G2) equal to the CPU's;
+     the card: pairing.cu's build seconds and ptxas report, K7 (Miller
+     loop) and K8 (product and final exponentiation) at the cells'
+     shapes (Groth16's one group of 4 pairs, CPmmp's 126 pairs in 44
+     groups; bit for bit against the plain path, both timed) and at 2^14
+     pairs, beside their bounds; bilinearity e(aG1, bG2) = e(G1, G2)^(ab)
+     at width 64 and e(G1, G2) equal to the CPU's;
   7. the same in the Fiat-Shamir mode (`matrixsc.run(10)`), verify true,
      K1-K4 launched;
   8. the Hadamard example at n = 2^14 (`examples.hadamard.run(14)`):
@@ -134,6 +138,18 @@ TC_OPS_PER_ELEM = 4 * 16 * 8 * 32 * 2 // 8
 INT8_TC_OPS_PER_S = 1979e12
 #: Montgomery products per MiMC permutation (K4): 110 rounds of three
 MIMC_PRODUCTS = 330
+#: Montgomery products per thread of csrc/pairing.cu, counted over its
+#: sequence of Fq products: K7 per pair (its two Fermat inversions
+#: included), K8 per product of one Miller value (each further value in the
+#: product adds one Fq12 product, 54)
+MONT_PER_MILLER = 11248
+MONT_PER_FINAL_EXP = 12369
+#: the cells' pairing checks (group sizes): Groth16's one group of 4 pairs;
+#: CPmmp's two CPpoly openings at d = 20, each a knowledge group of 2
+#: pairs, a main group of 21 and 20 knowledge groups of 2
+PAIRING_SHAPES = {"groth16": [4], "cpmmp": ([2, 21] + [2] * 20) * 2}
+#: K7's and K8's width where the multiply rate bounds them
+PAIRING_WIDE = 1 << 14
 #: K3's `times` checked and timed at 2^20 (4: scalar multiplication's
 #: windows, 17: the Horner step of a c = 17 MSM)
 DOUBLE_TIMES = (4, 17)
@@ -651,28 +667,105 @@ def phase_probes(torch, np, dev) -> dict:
     log(f"# phase 6 probes: P1b/K1 time ratio {res['mont_mul_tc']['ms'] / k1_ms:.3f}, "
         f"P1a/K1 {res['mont_mul_sos']['ms'] / k1_ms:.3f} "
         f"({time.perf_counter() - t0:.1f}s)")
-    phase_pairing(torch, np, dev)
+    stats.update(phase_pairing(torch, np, dev))
     log("# phase 6 ok: P1a, P1b and P2 bit-identical to their plain "
-        "versions (P1a, P1b to K1); pairing bilinear and card == CPU")
+        "versions (P1a, P1b to K1); K7 and K8 bit-identical to the plain "
+        "pairing; pairing bilinear and card == CPU")
     return stats
 
 
-def phase_pairing(torch, np, dev) -> None:
-    """Bilinearity e(aG1, bG2) = e(G1, G2)^(ab) at width 64 on the card,
-    and e(G1, G2) on the card equal to the CPU's."""
+def _ptxas_by_function(log_text: str) -> list:
+    """ptxas's report per function: each entry kernel's registers, stack
+    frame and spills, and every called function that spills."""
+    out, fn = [], None
+    for ln in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m[1]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
+        if m and fn:
+            kernel = re.search(r"pairing_\w+_kernel", fn)
+            if kernel or int(m[2]):
+                out.append(f"{kernel[0] if kernel else fn}: {m[1]} B stack, "
+                           f"{m[2]} B spill stores")
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn and re.search(r"pairing_\w+_kernel", fn):
+            out[-1] += f", {m[1]} registers"
+    return out
+
+
+def _pairing_timings(torch, dev, pr, P, Q, name: str, sizes):
+    """K7 and K8 over one pairing_checks shape (group sizes; each group
+    its own product) against the plain path: ms per launch by CUDA events,
+    the plain path's seconds, the bounds; K7's Miller values and K8's
+    results bit-identical to the plain path's."""
+    from legosnark_tpu_torch.curve.group import Point
+    from legosnark_tpu_torch.fields import limb as fl
+    from legosnark_tpu_torch.utils.bench import timed_ms
+
+    n = sum(sizes)
+    reps = -(-n // P.x.shape[-1])
+    p = Point(*(t.repeat(1, reps)[..., :n].contiguous() for t in P))
+    q = Point(*(t.repeat(1, 1, reps)[..., :n].contiguous() for t in Q))
+    idx = pr._group_table(sizes).to(dev)
+    fs = pr.miller_values(p, q)
+    k7_ms = timed_ms(lambda: pr.miller_values(p, q), dev, 3)
+    k8_ms = timed_ms(lambda: pr.final_exps(fs, idx), dev, 3)
+    st = {"pairs": n, "products": len(sizes), "k7_ms": k7_ms,
+          "k8_ms": k8_ms,
+          "k7_bound_ms": bound(0, n * MONT_PER_MILLER * IMUL_PER_MONT)[0],
+          "k8_bound_ms": bound(0, len(sizes) * MONT_PER_FINAL_EXP
+                               * IMUL_PER_MONT)[0]}
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    ml = pr._miller_masked(p, q)
+    _sync(torch, dev)
+    t1 = time.perf_counter()
+    ones = torch.cat([ml, pr.F12.one((1,), dev)], dim=-1)
+    fe = pr.final_exp_plain(pr._tree_prod(ones[..., idx].movedim(-2, 0)))
+    _sync(torch, dev)
+    st.update(plain_miller_s=t1 - t0,
+              plain_final_exp_s=time.perf_counter() - t1)
+    check(torch.equal(fs, fl.canon(pr.F1.spec, ml)),
+          f"K7 equals the plain Miller values ({name})")
+    check(torch.equal(pr.final_exps(fs, idx), fl.canon(pr.F1.spec, fe)),
+          f"K8 equals final_exp_plain ({name})")
+    log(f"# phase 6 pairing {name}: {n} pairs, {len(sizes)} products: K7 "
+        f"{k7_ms:.3f} ms (bound {st['k7_bound_ms']:.4f}), K8 {k8_ms:.3f} ms "
+        f"(bound {st['k8_bound_ms']:.4f}); plain Miller "
+        f"{st['plain_miller_s']:.2f} s, final exp. "
+        f"{st['plain_final_exp_s']:.2f} s")
+    return st
+
+
+def phase_pairing(torch, np, dev) -> dict:
+    """The pairing on K7/K8: ptxas's report and the build seconds of
+    pairing.cu; K7 and K8 at the cells' pairing_checks shapes (bit for bit
+    against the plain path) and at 2^14 pairs; bilinearity
+    e(aG1, bG2) = e(G1, G2)^(ab) at width 64; e(G1, G2) on the card equal
+    to the CPU's."""
+    from legosnark_tpu_torch import kernels
     from legosnark_tpu_torch.convert import to_ints
     from legosnark_tpu_torch.curve import bn254, pairing as pr
     from legosnark_tpu_torch.curve.group import (G1, G2, g1_generator,
                                                  g2_generator)
     from legosnark_tpu_torch.fields import limb as fl
 
+    rec = kernels.build_log["pairing.cu"]
+    log(f"# phase 6 pairing.cu: built in {rec['seconds']:.1f}s; "
+        + "; ".join(_ptxas_by_function(rec["log"])))
     m = 64
     rng = np.random.default_rng(64)
     a = [int(x) for x in rng.integers(1, 1 << 16, size=m)]
     b = [int(x) for x in rng.integers(1, 1 << 16, size=m)]
-    t0 = time.perf_counter()
     P = G1.scalar_mul(g1_generator((), dev), fl.tensor(fl.ints_to_limbs(a), dev))
     Q = G2.scalar_mul(g2_generator((), dev), fl.tensor(fl.ints_to_limbs(b), dev))
+    shapes = dict(PAIRING_SHAPES, wide=[1] * PAIRING_WIDE)
+    stats = {name: _pairing_timings(torch, dev, pr, P, Q, name, sizes)
+             for name, sizes in shapes.items()}
+    t0 = time.perf_counter()
     px, py, _ = pr.g1_affine(P)
     qx, qy, _ = pr.g2_affine(Q)
     e_ab = pr.pairing(px, py, qx, qy)                       # [.., 64]
@@ -703,6 +796,14 @@ def phase_pairing(torch, np, dev) -> None:
     check(bil, "e(aG1, bG2) = e(G1, G2)^(ab) on the card")
     check(same, "e(G1, G2) on the card equals the CPU's")
     check(not bool(pr.F12.is_one(e1).all()), "e(G1, G2) != 1")
+    wide = stats["wide"]
+    return {name: {"ms": wide[f"{k}_ms"], "bound_ms": wide[f"{k}_bound_ms"],
+                   "bound_by": "operations", "plain_ms": wide[plain] * 1e3,
+                   "ms_by_shape": {s: v[f"{k}_ms"] for s, v in stats.items()},
+                   "plain_s_by_shape": {s: v[plain] for s, v in stats.items()}}
+            for name, k, plain in (
+                ("pairing_miller", "k7", "plain_miller_s"),
+                ("pairing_final_exp", "k8", "plain_final_exp_s"))}
 
 
 def phase_hadamard(torch, np, dev, d: int, kernels) -> dict:
@@ -1341,6 +1442,8 @@ KERNELS = {
     "mimc": ("legosnark_tpu_torch/csrc/mimc.cu", None, True),
     "g2_add": ("legosnark_tpu_torch/csrc/g2.cu", None, True),
     "g2_double": ("legosnark_tpu_torch/csrc/g2.cu", None, True),
+    "pairing_miller": ("legosnark_tpu_torch/csrc/pairing.cu", None, True),
+    "pairing_final_exp": ("legosnark_tpu_torch/csrc/pairing.cu", None, True),
 }
 
 

@@ -8,8 +8,8 @@ to `build/kernels/` beside the package, so a second process reuses them.
 The first kernel launch builds everything; `build()` does it explicitly.
 
 `launches` counts, per kernel, the launches made by the wrappers in
-`fields/cuda_limb.py`, `curve/cuda_group.py`, `utils/transcript.py` and
-`probes/mont_variants.py`;
+`fields/cuda_limb.py`, `curve/cuda_group.py`, `curve/pairing.py`,
+`utils/transcript.py` and `probes/mont_variants.py`;
 `launch_widths` splits them by exact width (elements per launch) and
 `times` (the doublings of one K3 or K6 launch; 1 for every other
 kernel). Both go up only through `count`, where a wrapper launches.
@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("mont_mul.cu", "g1.cu", "mont_sos.cu", "mont_tc.cu",
-           "limb_product.cu", "mimc.cu", "g2.cu")
+           "limb_product.cu", "mimc.cu", "g2.cu", "pairing.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +50,8 @@ _SIGNATURES = {
     "lsk_mont_mul_tc": [_P, _P, _P, _LL, _LL, _P, _P],
     "lsk_limb_product": [_P, _P, _P, _LL, _LL, ctypes.c_int, _P],
     "lsk_mimc": [_P, _P, _LL, _P, _LL, _LL, _P, ctypes.c_int, _P, _P],
+    "lsk_pairing_miller": [_P] * 7 + [_LL, _LL, _P, _P],
+    "lsk_pairing_final_exp": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _P, _P],
 }
 _libs: dict = {}
 #: source -> {"seconds": build time (0 when reused), "log": nvcc output,

@@ -10,7 +10,7 @@ no clock, no CUDA call, nothing recorded. There is no environment switch.
 On, each span records its name, id, parent id and attributes; its host
 start and end on the clock of `torch.profiler`'s device events
 (`now_ns`, Unix nanoseconds), so a span can be laid beside the kernels
-of a profiler trace; the rise of `kernels.launches` of K1-K3, K5 and K6
+of a profiler trace; the rise of `kernels.launches` of K1-K3 and K5-K8
 over the span; its counters, its children's included; and, when CUDA is
 in use, a pair of `torch.cuda.Event`s recorded at open and close, read
 at `drain()` (after the caller's synchronize) as the span's
@@ -33,8 +33,9 @@ import torch
 
 from .. import kernels
 
-#: kernels whose launches a span counts: K1, K2, K3, K5, K6
-KERNELS = ("mont_mul", "g1_add", "g1_double", "g2_add", "g2_double")
+#: kernels whose launches a span counts: K1, K2, K3, K5, K6, K7, K8
+KERNELS = ("mont_mul", "g1_add", "g1_double", "g2_add", "g2_double",
+           "pairing_miller", "pairing_final_exp")
 
 _on = False
 _events = False

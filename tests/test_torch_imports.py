@@ -13,6 +13,7 @@ from legosnark_tpu_torch import bench, config, kernels
 from legosnark_tpu_torch import bench_gadgets
 from legosnark_tpu_torch.curve import bn254, cuda_group
 from legosnark_tpu_torch.curve import group as tg
+from legosnark_tpu_torch.curve import pairing as pr
 from legosnark_tpu_torch.examples import cplink
 from legosnark_tpu_torch.examples import hadamard as hadamard_example
 from legosnark_tpu_torch.examples import legogrothmatrix, matrixac, matrixsc
@@ -25,7 +26,8 @@ from legosnark_tpu_torch.prototools import commit, ntt  # noqa: F401
 from legosnark_tpu_torch.prototools import polytools
 from legosnark_tpu_torch.probes import mont_variants
 from legosnark_tpu_torch.utils import (benchmark, bp_circuits,  # noqa: F401
-                                       dbg, rand, sparse, transcript, util)
+                                       dbg, rand, sparse, trace, transcript,
+                                       util)
 
 # The plain path runs many small torch ops; idle intra-op threads spin and
 # starve the other test processes, so the port's tests use one thread.
@@ -135,8 +137,42 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     assert sum(kernels.launches.values()) == 0
 
 
+def test_pairing_on_cpu_tensors_launches_nothing(monkeypatch):
+    """miller_loop, final_exp, pairing, pairing_checks and
+    pairing_product_is_one on CPU tensors take the torch code (here
+    stand-ins that record their calls; tests/test_torch_pairing.py holds
+    its values) and count no launch."""
+    calls = []
+
+    def miller(px, py, qx, qy):
+        calls.append("miller")
+        return pr.F12.one(pr.F1.batch_shape(px), px.device)
+
+    def final(f):
+        calls.append("final_exp")
+        return f
+
+    monkeypatch.setattr(pr, "miller_loop_plain", miller)
+    monkeypatch.setattr(pr, "final_exp_plain", final)
+    kernels.reset_launches()
+    g1, g2 = tg.g1_generator((2,), "cpu"), tg.g2_generator((2,), "cpu")
+    x, y = g1.x, g1.y
+    pr.pairing(x, y, g2.x, g2.y)
+    pr.final_exp(pr.miller_loop(x, y, g2.x, g2.y))
+    assert pr.pairing_checks([(g1, g2), (g1, g2)]).tolist() == [True] * 2
+    assert bool(pr.pairing_product_is_one(g1, g2))
+    assert calls == ["miller", "final_exp"] * 4
+    assert sum(kernels.launches.values()) == 0
+
+
 def test_other_devices_raise_instead_of_falling_back():
     a = torch.empty((8, 4), dtype=torch.int32, device="meta")
+    b = torch.empty((2, 8, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        pr.miller_values(tg.Point(a, a, a), tg.Point(b, b, b))
+    with pytest.raises(ValueError, match="device"):
+        pr.final_exps(torch.empty((2, 3, 2, 8, 4), dtype=torch.int32,
+                                  device="meta"), torch.zeros((4, 1)))
     with pytest.raises(ValueError, match="device"):
         cuda_limb.mont_mul(bn254.FR, a, a)
     with pytest.raises(ValueError, match="device"):
@@ -157,6 +193,8 @@ def test_kernel_sources_and_build_setup():
         assert ("Replaces the Pallas kernel" in text
                 or "Replaces no Pallas kernel" in text)
         assert "What bounds it" in text
+    assert "pairing.cu" in kernels.SOURCES
+    assert {"pairing_miller", "pairing_final_exp"} <= set(trace.KERNELS)
     assert kernels.BUILD_DIR.parts[-2:] == ("build", "kernels")
     gitignore = (PKG.parent / ".gitignore").read_text().split()
     assert "build/" in gitignore

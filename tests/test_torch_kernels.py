@@ -5,6 +5,8 @@ machine without one. This file imports nothing of JAX, so it also runs
 where JAX is missing:
     python -m pytest tests/test_torch_kernels.py --noconftest -m requires_cuda
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +14,7 @@ import torch
 from legosnark_tpu_torch import kernels
 from legosnark_tpu_torch.curve import bn254, cuda_group, msm
 from legosnark_tpu_torch.curve import group as tg
+from legosnark_tpu_torch.curve import pairing as pr
 from legosnark_tpu_torch.fields import cuda_limb
 from legosnark_tpu_torch.fields import limb as fl
 from legosnark_tpu_torch.probes import mont_variants as mv
@@ -272,3 +275,159 @@ def test_mimc_equals_plain(cuda, width):
         torch.cuda.synchronize()
         assert kernels.launches == {"mimc": 1}
         assert torch.equal(got, plain())
+
+
+def _gen_mul(cuda, ks1, ks2):
+    """[k]G1 for k in ks1 and [k]G2 for k in ks2 (ints below r), as the
+    projective points the fixed-base batch gives."""
+    def mul(C, gen, ks):
+        table = msm.fixed_base_table(C, gen((), cuda), c=8)
+        return msm.batch_scalar_mul(C, table, fl.tensor(
+            fl.ints_to_limbs(ks), cuda), c=8)
+    return mul(tg.G1, tg.g1_generator, ks1), mul(tg.G2, tg.g2_generator, ks2)
+
+
+def _rand_z(rng, cuda, lead, n):
+    """Random nonzero Fq values [*lead, 8, n] in Montgomery form."""
+    m = math.prod(lead)
+    vals = [int(v) for v in rng.integers(1, 1 << 62, size=m * n)]
+    t = fl.tensor(bn254.FQ.to_mont_ints(vals), cuda)
+    return t.view(8, m, n).transpose(0, 1).reshape(lead + (8, n))
+
+
+def _pairing_legs(cuda, n):
+    """n pairs of legs with random z (each coordinate times one random
+    Fq or Fq2 value): the generators at lane 0 (z = 1), at lanes 1, 2
+    and 3 (n >= 4) the identity in G1, in G2 and in both, elsewhere
+    random multiples."""
+    rng = np.random.default_rng(n)
+    ks = [int(v) for v in rng.integers(1, 1 << 62, size=2 * n)]
+    P, Q = _gen_mul(cuda, ks[:n], ks[n:])
+    lane = torch.arange(n, device=cuda)
+    z1 = _rand_z(rng, cuda, (), n)
+    z2 = _rand_z(rng, cuda, (2,), n)
+    P = tg.Point(*(tg.FQ_OPS.mul(t, z1) for t in P))
+    Q = tg.Point(*(tg.FQ2_OPS.mul(t, z2) for t in Q))
+    P = tg.G1.select(lane == 0, tg.g1_generator((n,), cuda), P)
+    Q = tg.G2.select(lane == 0, tg.g2_generator((n,), cuda), Q)
+    P = tg.G1.select((lane == 1) | (lane == 3), tg.G1.identity((n,), cuda), P)
+    Q = tg.G2.select((lane == 2) | (lane == 3), tg.G2.identity((n,), cuda), Q)
+    return (tg.Point(*(t.contiguous() for t in P)),
+            tg.Point(*(t.contiguous() for t in Q)))
+
+
+def _canon(t):
+    return fl.canon(bn254.FQ, t)
+
+
+@pytest.mark.parametrize("n", [1, 4, 130])
+def test_k7_k8_equal_plain(cuda, n):
+    """K7 against the plain Miller values (`_miller_masked`: affine legs,
+    `miller_loop_plain`, identities masked), K8 against
+    `final_exp_plain` of the plain products, bit for bit on canonical
+    values, one launch each; the affine entry points too."""
+    P, Q = _pairing_legs(cuda, n)
+    kernels.reset_launches()
+    got = pr.miller_values(P, Q)
+    torch.cuda.synchronize()
+    assert kernels.launches == {"pairing_miller": 1}
+    assert kernels.launch_widths["pairing_miller"] == {(n, 1): 1}
+    want = pr._miller_masked(P, Q)
+    assert torch.equal(got, _canon(want))
+    # K8 over a table: every pair, single pairs, and a row of padding
+    rows = [list(range(n)), [0], [n - 1, n], [n, n]]
+    width = max(map(len, rows))
+    idx = torch.tensor([r + [n] * (width - len(r)) for r in rows])
+    kernels.reset_launches()
+    fe = pr.final_exps(got, idx)
+    torch.cuda.synchronize()
+    assert kernels.launches == {"pairing_final_exp": 1}
+    ones = torch.cat([want, pr.F12.one((1,), cuda)], dim=-1)
+    prods = pr._tree_prod(ones[..., idx.to(cuda)].movedim(-2, 0))
+    assert torch.equal(fe, _canon(pr.final_exp_plain(prods)))
+    # the affine entry points: miller_loop (K7 with z = 1), final_exp
+    px, py, v1 = pr.g1_affine(P)
+    qx, qy, v2 = pr.g2_affine(Q)
+    kernels.reset_launches()
+    ml = pr.miller_loop(px, py, qx, qy)
+    e = pr.final_exp(ml)
+    torch.cuda.synchronize()
+    assert kernels.launches == {"pairing_miller": 1, "pairing_final_exp": 1}
+    plain_ml = pr.miller_loop_plain(px, py, qx, qy)
+    assert torch.equal(ml, _canon(plain_ml))
+    assert torch.equal(e, _canon(pr.final_exp_plain(plain_ml)))
+
+
+def _product_groups(cuda, sizes, tampered):
+    """One group of pairs per size (even): pairs (aG1, bG2) and (-abG1,
+    G2), whose product of pairings is 1, in random projective form; a
+    group of odd size also has an identity leg. Group `tampered` has
+    ab + 1 in place of ab."""
+    rng = np.random.default_rng(len(sizes))
+    r = bn254.R
+    ks1, ks2 = [], []
+    for k, s in enumerate(sizes):
+        for i in range(s // 2):
+            a, b = (int(v) for v in rng.integers(1, 1 << 62, size=2))
+            ab = (a * b + (k == tampered and i == 0)) % r
+            ks1 += [a, (r - ab) % r]
+            ks2 += [b, 1]
+        if s % 2:
+            ks1.append(0)
+            ks2.append(int(rng.integers(1, 1 << 62)))
+    P, Q = _gen_mul(cuda, ks1, ks2)
+    n = len(ks1)
+    z1, z2 = _rand_z(rng, cuda, (), n), _rand_z(rng, cuda, (2,), n)
+    P = tg.Point(*(tg.FQ_OPS.mul(t, z1) for t in P))
+    Q = tg.Point(*(tg.FQ2_OPS.mul(t, z2) for t in Q))
+    groups, off = [], 0
+    for s in sizes:
+        groups.append(tuple(tg.Point(*(t[..., off:off + s].contiguous()
+                                       for t in pt)) for pt in (P, Q)))
+        off += s
+    return groups
+
+
+def _plain_checks(groups):
+    sizes = [g.x.shape[-1] for g, _ in groups]
+    f = pr.final_exp_plain(pr._grouped_miller(groups, sizes))
+    return pr.F12.is_one(f)[..., 0]
+
+
+@pytest.mark.parametrize("shape", ["groth16", "cpmmp"])
+def test_pairing_checks_k7_k8_verdicts(cuda, shape):
+    """pairing_checks and pairing_product_is_one on the card give the
+    plain path's verdicts: Groth16's one group of four pairs (and the same
+    group tampered), CPmmp's 2 x (one group of 2 pairs, one of 21, twenty
+    of 2) with group 5 tampered (and an identity leg in each odd group);
+    one K7 and one K8 launch per check and no K1 launch inside its span."""
+    from legosnark_tpu_torch.utils import trace
+
+    if shape == "groth16":
+        cases = [([4], None), ([4], 0)]
+    else:
+        cases = [(([2, 21] + [2] * 20) * 2, 5)]
+    for sizes, tampered in cases:
+        groups = _product_groups(cuda, sizes, tampered)
+        want = [k != tampered for k in range(len(sizes))]
+        trace.enable()
+        try:
+            kernels.reset_launches()
+            got = pr.pairing_checks(groups)
+            torch.cuda.synchronize()
+            spans = [s for s in trace.drain() if s.name == "pairing.checks"]
+        finally:
+            trace.disable()
+        assert got.tolist() == want
+        assert kernels.launches == {"pairing_miller": 1,
+                                    "pairing_final_exp": 1}
+        (span,) = spans
+        assert span.launches["pairing_miller"] == 1
+        assert span.launches["pairing_final_exp"] == 1
+        assert span.launches["mont_mul"] == 0
+        assert _plain_checks(groups).tolist() == want
+        if len(sizes) == 1:
+            assert bool(pr.pairing_product_is_one(*groups[0])) == want[0]
+            # a leading batch axis: the group twice, as two products
+            g2 = [tg.point_stack([g, g]) for g in groups[0]]
+            assert pr.pairing_product_is_one(*g2).tolist() == want * 2

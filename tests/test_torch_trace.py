@@ -106,15 +106,19 @@ def test_launch_rise_and_counters_per_span(traced):
             kernels.count("g1_double", 4, 3)
             kernels.count("g2_double", 1, 17)
             kernels.count("mont_mul", 1)
+            kernels.count("pairing_miller", 4)
             trace.count("mimc.permute", 2)
         kernels.count("g1_add", 2)
         kernels.count("g2_add", 6)
         kernels.count("g2_add", 3)
+        kernels.count("pairing_final_exp", 1)
     trace.count("mimc.permute")          # no span open: dropped
     assert inner.launches == {"mont_mul": 1, "g1_add": 0, "g1_double": 1,
-                              "g2_add": 0, "g2_double": 1}
+                              "g2_add": 0, "g2_double": 1,
+                              "pairing_miller": 1, "pairing_final_exp": 0}
     assert outer.launches == {"mont_mul": 2, "g1_add": 1, "g1_double": 1,
-                              "g2_add": 2, "g2_double": 1}
+                              "g2_add": 2, "g2_double": 1,
+                              "pairing_miller": 1, "pairing_final_exp": 1}
     assert inner.counts == {"mimc.permute": 2}
     assert outer.counts == {"mimc.permute": 3}
     kernels.reset_launches()
